@@ -1,0 +1,217 @@
+"""threeState problem packing + the emissions -> forward -> backward pipeline
+(port of engine/pallas_pipeline.py:32-214).
+
+Index conventions: per-x arrays are indexed by x (= x_idx + 1, so slot 0 is
+the x = -1 sentinel) shifted by +PADX so window cells left of the matrix stay
+in bounds; reversed event arrays are indexed by ri = lY - y (increasing along
+a diagonal).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cpecan_signal_tpu.constants import KMER_LENGTH, NUM_OF_KMERS
+from cpecan_signal_tpu.core.window import WindowBand
+from cpecan_signal_tpu.models.pore_model import PoreModel
+from cpecan_signal_tpu.models.state_machines import LOG_TENTH, make_signal_sm3
+
+from ..ops import fb_kernels as fk
+from .plan import EnginePlan, _build_plan, edge_table, plan_from
+
+NEG_INF = fk.NEG_INF
+
+
+class SM3Problem(NamedTuple):
+    """One threeState problem, or a batch of them stacked on a leading axis."""
+
+    xarr: torch.Tensor          # (13, lXp) f32 per-x parameter pack
+    evr: torch.Tensor           # (2, lYp) f32 reversed event rows
+    x0: torch.Tensor            # (Dp+1,) int32 emission x-slice offsets
+    yr0: torch.Tensor           # (Dp+1,) int32
+    diag_scalars: torch.Tensor  # (Dp+1, 1, 8) int32 (ops/fb_kernels DS_*)
+    d_last: torch.Tensor        # () int32
+    start: torch.Tensor         # (S,) f32
+    end: torch.Tensor           # (S,) f32
+    tp_scalar: torch.Tensor     # (n,) f32
+    xrank: torch.Tensor         # (lXp,) int32 k-mer rank per xarr column
+
+
+def _gauss_pack(table: np.ndarray, ranks: np.ndarray):
+    """(mu, inv_sd, logc) triplets for level & noise from a model table
+    gathered by rank; sigma == 0 rows (sentinels) become NEG_INF emissions."""
+    mu_l = table[ranks, 0]
+    sd_l = table[ranks, 1]
+    mu_n = table[ranks, 2]
+    sd_n = table[ranks, 3]
+
+    def pack(mu, sd):
+        ok = sd != 0.0
+        inv = np.where(ok, 1.0 / np.where(ok, sd, 1.0), 0.0)
+        logc = np.where(ok, -0.91893853320467267 - np.log(np.where(ok, sd, 1.0)),
+                        NEG_INF)
+        return np.where(ok, mu, 0.0), inv, logc
+
+    return pack(mu_l, sd_l) + pack(mu_n, sd_n)
+
+
+def _san(v):
+    """Finite f32: saturate -inf transition/boundary values to NEG_INF so
+    in-kernel f32 arithmetic stays NaN-free."""
+    return np.maximum(np.asarray(v, dtype=np.float64), NEG_INF).astype(np.float32)
+
+
+def _window_diag_scalars(wband: WindowBand, Dp: int):
+    """(Dp+1, 1, 8) int32 DS_* rows for a window band padded to Dp diagonals;
+    padded rows keep stepping the window with empty xmy ranges so they stay
+    invalid.  DS_XS and the row-Dp copy are left to the caller.  Returns
+    (ds, padded w0)."""
+    D, W = wband.n_diagonals, wband.W
+    w0 = np.empty(Dp, dtype=np.int64)
+    w0[:D] = wband.w0
+    for d in range(D, Dp):
+        w0[d] = w0[d - 1] + (1 if (d - D) % 2 == 0 else -1)
+    xmyL = np.empty(Dp, dtype=np.int64)
+    xmyR = np.empty(Dp, dtype=np.int64)
+    xmyL[:D] = wband.xmyL
+    xmyR[:D] = wband.xmyR
+    xmyL[D:] = w0[D:] + 2 * W + 2
+    xmyR[D:] = w0[D:]
+
+    ds = np.zeros((Dp + 1, 1, 8), dtype=np.int32)
+    ds[2:Dp, 0, fk.DS_FM] = (w0[2:] - w0[:-2]) // 2
+    ds[1:Dp, 0, fk.DS_FL] = (w0[1:] - 1 - w0[:-1]) // 2
+    ds[:Dp - 1, 0, fk.DS_BL] = (w0[:-1] + 1 - w0[1:]) // 2
+    ds[:Dp - 2, 0, fk.DS_BM] = (w0[:-2] - w0[2:]) // 2
+    ds[:Dp, 0, fk.DS_W0] = w0
+    ds[:Dp, 0, fk.DS_XMYL] = xmyL
+    ds[:Dp, 0, fk.DS_XMYR] = xmyR
+    return ds, w0
+
+
+def make_sm3_problem(pore: PoreModel, target_seq: str, events: np.ndarray,
+                     wband: WindowBand, *, device: torch.device,
+                     transitions=None, kmer_gap_probs=None, ragged_left=True,
+                     ragged_right=True, pad_lx: int | None = None,
+                     pad_ly: int | None = None, pad_d: int | None = None
+                     ) -> tuple[EnginePlan, SM3Problem]:
+    """Host-packed threeState problem (make_sm3_pallas_problem).  Dp is the
+    diagonal count padded to ``pad_d``; the kernels need no block rounding."""
+    sm = make_signal_sm3(pore, target_seq, events, transitions, kmer_gap_probs)
+    plan, tp_scalar, cell_sources = _build_plan(sm, "exact")
+    assert not cell_sources
+
+    W = wband.W
+    D = wband.n_diagonals
+    Dp = max(D, pad_d or D)
+    lX = len(target_seq) - KMER_LENGTH + 1
+    lY = len(events)
+    lx_cap = lX if pad_lx is None else pad_lx
+    ly_cap = lY if pad_ly is None else pad_ly
+
+    # per-x parameter pack: slots x = 0..lX (+1 sentinel at 0), padded by W
+    # on both sides so any window slice is in bounds
+    PADX = W
+    lXp = -(-(lx_cap + 1 + 2 * W + 2 * 128) // 128) * 128
+    xarr = np.zeros((fk.N_XPARAMS, lXp), dtype=np.float32)
+    xarr[[2, 5, 8, 11, 12]] = NEG_INF   # logc and gapX rows default to invalid
+    ranks = sm.kmer_ranks
+    sl = slice(PADX, PADX + lX + 1)
+    for row, vals in enumerate(_gauss_pack(pore.match_model, ranks)
+                               + _gauss_pack(pore.y_model, ranks)):
+        xarr[row, sl] = vals
+    gapx_tab = np.full(NUM_OF_KMERS + 2, LOG_TENTH)
+    if kmer_gap_probs is not None:
+        gapx_tab[:NUM_OF_KMERS] = kmer_gap_probs
+    gapx_tab[NUM_OF_KMERS:] = NEG_INF
+    xarr[12, sl] = np.maximum(gapx_tab[ranks], NEG_INF)
+    xrank = np.full(lXp, NUM_OF_KMERS + 1, dtype=np.int32)
+    xrank[sl] = ranks
+
+    # reversed event rows: ri = lY - y in [0, lY], padded by W
+    PADY = W
+    lYp = -(-(ly_cap + 1 + 2 * W + 2 * 128) // 128) * 128
+    evr = np.zeros((2, lYp), dtype=np.float32)
+    evr[0, PADY:PADY + lY] = events[::-1, 0]
+    evr[1, PADY:PADY + lY] = events[::-1, 1]
+
+    ds, w0 = _window_diag_scalars(wband, Dp)
+    d_arange = np.arange(Dp)
+    x0 = np.zeros(Dp + 1, dtype=np.int32)
+    yr0 = np.zeros(Dp + 1, dtype=np.int32)
+    x0[:Dp] = np.clip((d_arange + w0) // 2 + PADX, 0, lXp - W)
+    yr0[:Dp] = np.clip(lY - (d_arange - w0) // 2 + PADY, 0, lYp - W)
+    ds[1:Dp, 0, fk.DS_XS] = x0[1:Dp] - x0[:Dp - 1]  # x-window step, in {0,1}
+    ds[Dp] = ds[Dp - 1]  # row Dp: read when the kernels peek at d+1
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    prob = SM3Problem(
+        xarr=t(xarr, torch.float32), evr=t(evr, torch.float32),
+        x0=t(x0, torch.int32), yr0=t(yr0, torch.int32),
+        diag_scalars=t(ds, torch.int32),
+        d_last=t(D - 1, torch.int32),
+        start=t(_san(sm.ragged_start if ragged_left else sm.start), torch.float32),
+        end=t(_san(sm.ragged_end if ragged_right else sm.end), torch.float32),
+        tp_scalar=t(_san(tp_scalar), torch.float32),
+        xrank=t(xrank, torch.int32))
+    return plan, prob
+
+
+def stack_problems(probs: list[SM3Problem]) -> SM3Problem:
+    """Stack equally padded problems into one batch."""
+    return SM3Problem(*(torch.stack(fields, dim=0) for fields in zip(*probs)))
+
+
+def problem_from_numpy(plan, prob, device: torch.device, Dp: int | None = None
+                       ) -> tuple[EnginePlan, SM3Problem]:
+    """Carry a JAX ``SM3PallasProblem`` batch (or an object with its fields
+    as numpy arrays) and its ``EnginePlan`` over to the port: diag_scalars
+    at nh = 1, rows past Dp+1 dropped (Dp defaults to the scalar rows - 1),
+    start/end/tp_scalar as f32.  Returns (port plan, SM3Problem)."""
+    ds = np.asarray(prob.diag_scalars)
+    if Dp is None:
+        Dp = ds.shape[-3] - 1
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return plan_from(plan), SM3Problem(
+        xarr=t(prob.xarr, torch.float32), evr=t(prob.evr, torch.float32),
+        x0=t(np.asarray(prob.x0)[..., :Dp + 1], torch.int32),
+        yr0=t(np.asarray(prob.yr0)[..., :Dp + 1], torch.int32),
+        diag_scalars=t(ds[..., :Dp + 1, :1, :], torch.int32),
+        d_last=t(prob.d_last, torch.int32),
+        start=t(prob.start, torch.float32), end=t(prob.end, torch.float32),
+        tp_scalar=t(prob.tp_scalar, torch.float32),
+        xrank=t(prob.xrank, torch.int32))
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``.  CUDA uploads go through pinned
+    memory without blocking, so dispatching a bucket never waits for the
+    work already queued on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def run_sm3(plan: EnginePlan, W: int, batch: SM3Problem, stages: int = 3):
+    """emissions -> forward -> fused backward on a stacked batch; returns
+    (p (B, Dp, W) match posteriors, totals (B, Dp)).  Stage 3 (alignment)
+    only: the EM tallies of stage 4 are still to be ported."""
+    if stages != 3:
+        raise NotImplementedError("run_sm3 runs stage 3 only; backward_sm3 stage 4 "
+                                  "(EM tallies) is ROADMAP queue 2 item 4b")
+    Dp = batch.diag_scalars.shape[1] - 1
+    edges = to_device(edge_table(plan), batch.xarr.device)
+    E = fk.emissions_sm3(batch.x0, batch.yr0, batch.xarr, batch.evr, W, Dp)
+    F = fk.forward_sm3(edges, E, batch.diag_scalars, batch.d_last, batch.start,
+                       batch.tp_scalar)
+    return fk.backward_sm3(edges, plan.match_state, E, F, batch.diag_scalars,
+                           batch.d_last, batch.end, batch.tp_scalar)

@@ -15,12 +15,11 @@ import os
 import random
 import sys
 
-from cpecan_signal_tpu.io.fasta import read_first_sequence
-from cpecan_signal_tpu.io.npread import load_npread
-from cpecan_signal_tpu.models.params import cli_defaults
-from cpecan_signal_tpu.models.pore_model import load_pore_model
-
 from ..engine.batch_align import assemble_pairs, batch_align_stream
+from ..io.fasta import read_first_sequence
+from ..io.npread import load_npread
+from ..models.params import cli_defaults
+from ..models.pore_model import load_pore_model
 from ..utils.device import resolve_device
 from .vanilla_align import (finish_read, guide_alignment, prepare_read,
                             require_threestate, strand_jobs)

@@ -16,20 +16,19 @@ import sys
 
 import numpy as np
 
-from cpecan_signal_tpu.anchor.seed_chain import get_anchor_pairs
-from cpecan_signal_tpu.constants import KMER_LENGTH, MODEL_PARAMS, PAIR_ALIGNMENT_PROB_1
-from cpecan_signal_tpu.core.anchors import (cigar_to_anchor_pairs, filter_to_remove_overlap,
-                                            remap_anchor_pairs_with_offset)
-from cpecan_signal_tpu.core.kmers import kmer_rank
-from cpecan_signal_tpu.io.cigar import CigarRecord, parse_cigar_line
-from cpecan_signal_tpu.io.fasta import read_first_sequence, reverse_complement
-from cpecan_signal_tpu.io.npread import NanoporeRead, load_npread
-from cpecan_signal_tpu.models.params import AlignmentParams, cli_defaults
-from cpecan_signal_tpu.models.pore_model import PoreModel, load_pore_model, scale_model
-from cpecan_signal_tpu.models.state_machines import make_signal_sm3
-
+from ..anchor.seed_chain import get_anchor_pairs
+from ..constants import KMER_LENGTH, MODEL_PARAMS, PAIR_ALIGNMENT_PROB_1
+from ..core.anchors import (cigar_to_anchor_pairs, filter_to_remove_overlap,
+                             remap_anchor_pairs_with_offset)
+from ..core.kmers import kmer_rank
 from ..engine.align import AlignedPairs, collect_split_jobs
 from ..engine.batch_align import assemble_pairs, batch_align_jobs
+from ..io.cigar import CigarRecord, parse_cigar_line
+from ..io.fasta import read_first_sequence, reverse_complement
+from ..io.npread import NanoporeRead, load_npread
+from ..models.params import AlignmentParams, cli_defaults
+from ..models.pore_model import PoreModel, load_pore_model, scale_model
+from ..models.state_machines import make_signal_sm3
 from ..utils.device import resolve_device
 
 # machines the JAX CLIs offer that the port does not align yet

@@ -12,6 +12,10 @@
 //   F             (B, Dp, S, W)   forward log-probs
 //   P             (B, Dp, W)      match posteriors;  T (B, Dp) totals
 //   edges         (n_edges, 12)   int32 edge table (engine/plan.edge_table)
+//   exits         (B, Dp, G)      stage 4: window-group mass leaving lane W-1
+//   gacc          (B, G, W)       stage 4: window-group tallies left at d = 0
+//   stats         (B, 128)        stage 4: lane e = edge-e posterior sum,
+//                                 lane LIK_LANE = likelihood
 //
 // Every float operation that the reference logAdd and the Gaussian pack do
 // as separate multiply and add is written with __fmul_rn / __fadd_rn, which
@@ -28,6 +32,9 @@
 #define MAX_IDS 4
 #define EDGE_COLS (4 + 2 * MAX_IDS)
 #define N_XPARAMS 13
+#define MAX_G 4
+#define STATS_LANES 128
+#define LIK_LANE 64
 
 enum { DS_FL = 0, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS };
 enum { SRC_LOWER = 0, SRC_MIDDLE = 1, SRC_UPPER = 2 };
@@ -287,10 +294,11 @@ __global__ void forward_kernel(const float* __restrict__ E,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3: backward + per-diagonal totals + match posteriors (stages <= 3)
+// Kernel 3: backward + per-diagonal totals + match posteriors (stages 3, 4)
 // ---------------------------------------------------------------------------
 // Replaces cpecan_signal_tpu/ops/pallas_fb.py:backward_sm3 (_backward_kernel)
-// at stages 1-3 with one problem per row (nh = 1).
+// at stage 3 (EM = false) and at stage 4 with window groups (EM = true), with
+// one problem per row (nh = 1).
 // Bound: the same serial diagonal chain as the forward kernel, plus two
 // block-wide logsumexp reductions per diagonal (the total over S x W and the
 // match-through-diagonal correction).  Design: the forward kernel's shape
@@ -299,17 +307,45 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // reduced together (warp shuffles, then one shared-memory pass over the
 // warps), three __syncthreads per diagonal in all.  B never leaves the
 // chip: the kernel writes only P and the totals.
-__global__ void backward_kernel(const float* __restrict__ E,
-                                const float* __restrict__ F,
-                                const int* __restrict__ ds,
-                                const int* __restrict__ d_last,
-                                const float* __restrict__ end,
-                                const float* __restrict__ tps,
-                                const int* __restrict__ edges,
-                                float* __restrict__ P, float* __restrict__ T,
-                                int Dp, int De, int C, int S, int W, int n_tp,
-                                int n_edges, int ds_rows, int match_state) {
-  extern __shared__ float carry[];  // 3 rows x S x (W + 2)
+//
+// Stage 4 (the EM E-step's tallies, ops/pallas_fb.py:559-624) adds, once
+// the total of diagonal d is known, one posterior per edge and cell,
+// exp(min(F_src[frm] + b[d][to] + E[d] + tp - total, 0)), with F[d-1] /
+// F[d-2] read at the forward kernel's shifts of row d.  It adds no barrier
+// to the chain: each thread keeps its per-edge partial sums over diagonals
+// in its own column of shared memory (registers would cost MAX_EDGES of
+// them a thread) and the block reduces them once, after the last diagonal,
+// so stats sum in another order than the plain version.  The window
+// groups' tallies live in registers, one lane per thread; the one-lane
+// shift where the x-window steps (DS_XS) crosses warps through a shared row
+// written on the parity of d and read after the barrier that closes the
+// diagonal.  exits and gacc sum the same members in the same order as the
+// plain version.  The bound stays the serial chain: the per-edge work is
+// independent across lanes and takes instruction slots, not barriers.
+//
+// Registers.  MAX_THREADS is the kernel's launch bound.  At 1024 it holds
+// the kernel to 64 registers a thread, so that a block of up to 1024 lanes
+// fits an SM's 65536 registers; stage 4 always runs so (93 registers
+// unbounded, and no slower at 64).  Stage 3 spills at 64 and runs 4.9 %
+// slower than at the 72 that a bound of NARROW_THREADS leaves it (26.02
+// against 24.80 ms at W = 128, Dp = 4096, B = 64 on an H100 80GB HBM3 at
+// 700 W, tools/torch_backward_launch_bounds.py), so windows that fit
+// NARROW_THREADS lanes take that second instance.
+#define NARROW_THREADS 896
+template <bool EM, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    backward_kernel(const float* __restrict__ E, const float* __restrict__ F,
+                    const int* __restrict__ ds, const int* __restrict__ d_last,
+                    const float* __restrict__ end, const float* __restrict__ tps,
+                    const int* __restrict__ edges, float* __restrict__ P,
+                    float* __restrict__ T, float* __restrict__ exits,
+                    float* __restrict__ gacc_out, float* __restrict__ stats,
+                    int Dp, int De, int C, int S, int W, int n_tp, int n_edges,
+                    int ds_rows, int match_state, int G, unsigned gm0,
+                    unsigned gm1, unsigned gm2, unsigned gm3) {
+  // 3 carry rows x S x (W + 2); at stage 4 then n_edges x W per-thread
+  // partial sums and 2 parity rows x G x W for the window-group shift
+  extern __shared__ float carry[];
   __shared__ int sh_edges[MAX_EDGES * EDGE_COLS];
   __shared__ float red[4][32];
   const int b = blockIdx.x;
@@ -318,6 +354,16 @@ __global__ void backward_kernel(const float* __restrict__ E,
   for (int i = j; i < n_edges * EDGE_COLS; i += blockDim.x)
     sh_edges[i] = edges[i];
   for (int i = j; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
+  float* part = carry + 3 * S * WP;  // part[e * W + j]: thread j's own
+  float* gsh = part + n_edges * W;   // gsh[(parity * G + g) * W + j]
+  const unsigned gmask[MAX_G] = {gm0, gm1, gm2, gm3};
+  float gacc[MAX_G];
+  float lik = 0.0f;
+  if constexpr (EM) {
+    for (int e = 0; e < n_edges; ++e) part[e * W + j] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) gacc[g] = 0.0f;
+  }
   __syncthreads();
 
   const float* tp = tps + (size_t)b * n_tp;
@@ -332,6 +378,10 @@ __global__ void backward_kernel(const float* __restrict__ E,
     if (d > dlast) {  // b = NEG_INF, total = NEG_INF, posterior 0 exactly
       Pb[(size_t)d * W + j] = 0.0f;
       if (j == 0) Tb[d] = NEG_INF;
+      // nothing is tallied above d_last, so the window-group tallies are
+      // still 0 and their shifts move zeros: only exits[d] = 0 is written
+      if constexpr (EM)
+        if (j < G) exits[((size_t)b * Dp + d) * G + j] = 0.0f;
       continue;
     }
     float* cur = carry + (d % 3) * S * WP;
@@ -431,7 +481,80 @@ __global__ void backward_kernel(const float* __restrict__ E,
       }
     const float pv = expf(fminf(__fsub_rn(__fadd_rn(mf, mb), total), 0.0f));
     Pb[(size_t)d * W + j] = (valid && xmy > -d && xmy < d) ? pv : 0.0f;
+
+    // --- stage 4: per-edge posteriors of diagonal d (d >= 1, band cells),
+    // summed in the plain version's order: src + b[to], + E channels, + tp
+    // terms left to right, - total
+    const bool step = row[DS_XS] == 1;  // the x-window steps right at d
+    if constexpr (EM) {
+      const int shL = sgn(row[DS_FL]);
+      const int shU = sgn(row[DS_FL] + 1);
+      const int shM = sgn(row[DS_FM]);
+      const bool em_ok = valid && d >= 1;
+      const float* Ed = Eb + (size_t)d * C * W;
+      float pg[MAX_G];
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) pg[g] = 0.0f;
+      for (int e = 0; e < n_edges; ++e) {
+        const int* er = sh_edges + e * EDGE_COLS;
+        const int src = er[0];
+        const int sh = src == SRC_LOWER ? shL : (src == SRC_MIDDLE ? shM : shU);
+        const int dd = src == SRC_MIDDLE ? d - 2 : d - 1;
+        const int jj = j + sh;
+        const float fv = (dd >= 0 && jj >= 0 && jj < W)
+                             ? Fb[((size_t)dd * S + er[1]) * W + jj]
+                             : NEG_INF;
+        float bto = NEG_INF;
+#pragma unroll
+        for (int s = 0; s < MAX_S; ++s)
+          if (s == er[2]) bto = acc[s];
+        const float logp = __fsub_rn(
+            add_tp(__fadd_rn(__fadd_rn(fv, bto), esum(Ed, er, W, j)), tp, er),
+            total);
+        const float pe = em_ok ? expf(fminf(logp, 0.0f)) : 0.0f;
+        part[e * W + j] = __fadd_rn(part[e * W + j], pe);
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g)
+          if (g < G && ((gmask[g] >> e) & 1u)) pg[g] = __fadd_rn(pg[g], pe);
+      }
+      if (d >= 1) lik = __fadd_rn(lik, total);
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        if (g < G) {
+          gacc[g] = __fadd_rn(gacc[g], pg[g]);
+          if (j == W - 1)
+            exits[((size_t)b * Dp + d) * G + g] = step ? gacc[g] : 0.0f;
+          if (step) gsh[((d & 1) * G + g) * W + j] = gacc[g];
+        }
+      }
+    }
     __syncthreads();
+    if constexpr (EM) {
+      // lane W-1 has left; every other lane moves one to the right
+      if (step) {
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g)
+          if (g < G) gacc[g] = j > 0 ? gsh[((d & 1) * G + g) * W + j - 1] : 0.0f;
+      }
+    }
+  }
+
+  if constexpr (EM) {
+    for (int g = 0; g < G; ++g) gacc_out[((size_t)b * G + g) * W + j] = gacc[g];
+    float* Sb = stats + (size_t)b * STATS_LANES;
+    // every thread holds the same likelihood (total is block-uniform)
+    for (int i = j; i < STATS_LANES; i += blockDim.x)
+      if (i >= n_edges) Sb[i] = (i == LIK_LANE) ? lik : 0.0f;
+    for (int e = 0; e < n_edges; e += 2) {
+      float a = part[e * W + j];
+      float a2 = (e + 1 < n_edges) ? part[(e + 1) * W + j] : 0.0f;
+      block_sum2(a, a2, red[2], red[3]);
+      if (j == 0) {
+        Sb[e] = a;
+        if (e + 1 < n_edges) Sb[e + 1] = a2;
+      }
+      __syncthreads();  // red is rewritten by the next pair
+    }
   }
 }
 
@@ -440,12 +563,28 @@ __global__ void backward_kernel(const float* __restrict__ E,
 // synchronise, and returns cudaGetLastError() (0 = launched).
 // ---------------------------------------------------------------------------
 
-static cudaError_t carry_smem(const void* fn, int S, int W, size_t* bytes) {
-  *bytes = (size_t)3 * S * (W + 2) * sizeof(float);
-  if (*bytes > 48 * 1024)
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*bytes);
-  return cudaSuccess;
+// Dynamic shared memory: the 3 carry rows, plus ``extra`` floats.  The
+// kernel's limit is raised to it on every launch: without the opt-in a
+// block gets 48 KB of static and dynamic shared memory together, so a
+// dynamic size just under 48 KB would fail beside the static arrays.
+static cudaError_t carry_smem(const void* fn, int S, int W, size_t extra,
+                              size_t* bytes) {
+  *bytes = ((size_t)3 * S * (W + 2) + extra) * sizeof(float);
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*bytes);
+}
+
+// One backward launch: a block of W threads per problem, ``extra`` floats
+// of dynamic shared memory past the carry rows.
+template <bool EM, int MAX_THREADS, typename... Args>
+static cudaError_t launch_backward(int B, int S, int W, size_t extra,
+                                   cudaStream_t stream, Args... args) {
+  size_t smem;
+  cudaError_t err = carry_smem((const void*)backward_kernel<EM, MAX_THREADS>,
+                               S, W, extra, &smem);
+  if (err != cudaSuccess) return err;
+  backward_kernel<EM, MAX_THREADS><<<B, W, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 extern "C" {
@@ -472,7 +611,7 @@ int fb_forward(const float* E, const int* ds, const int* d_last,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   size_t smem;
-  err = carry_smem((const void*)forward_kernel, S, W, &smem);
+  err = carry_smem((const void*)forward_kernel, S, W, 0, &smem);
   if (err != cudaSuccess) return (int)err;
   forward_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
       E, ds, d_last, start, tps, edges, F, Dp, De, C, S, W, n_tp, n_edges,
@@ -487,13 +626,35 @@ int fb_backward_sm3(const float* E, const float* F, const int* ds,
                     int match_state, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  size_t smem;
-  err = carry_smem((const void*)backward_kernel, S, W, &smem);
+  float* none = nullptr;
+  if (W <= NARROW_THREADS)
+    return (int)launch_backward<false, NARROW_THREADS>(
+        B, S, W, 0, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges,
+        P, T, none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
+        match_state, 0, 0u, 0u, 0u, 0u);
+  return (int)launch_backward<false, 1024>(
+      B, S, W, 0, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P,
+      T, none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
+      match_state, 0, 0u, 0u, 0u, 0u);
+}
+
+// Stage 4: G (1..MAX_G) window groups; gm<g> is group g's edge bitmask
+// (bit e = edge e), 0 for the unused groups.
+int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
+                       const int* d_last, const float* end, const float* tps,
+                       const int* edges, float* P, float* T, float* exits,
+                       float* gacc, float* stats, int B, int Dp, int De, int C,
+                       int S, int W, int n_tp, int n_edges, int ds_rows,
+                       int match_state, int G, int gm0, int gm1, int gm2,
+                       int gm3, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  backward_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
-      E, F, ds, d_last, end, tps, edges, P, T, Dp, De, C, S, W, n_tp, n_edges,
-      ds_rows, match_state);
-  return (int)cudaGetLastError();
+  if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
+  return (int)launch_backward<true, 1024>(
+      B, S, W, (size_t)(n_edges + 2 * G) * W, (cudaStream_t)stream, E, F, ds,
+      d_last, end, tps, edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp,
+      n_edges, ds_rows, match_state, G, (unsigned)gm0, (unsigned)gm1,
+      (unsigned)gm2, (unsigned)gm3);
 }
 
 }  // extern "C"

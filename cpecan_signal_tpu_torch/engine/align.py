@@ -14,12 +14,12 @@ from typing import Callable
 
 import numpy as np
 
-from cpecan_signal_tpu.constants import KMER_LENGTH, PAIR_ALIGNMENT_PROB_1
-from cpecan_signal_tpu.core.anchors import anchors_in_window, get_split_points
-from cpecan_signal_tpu.core.band import band_construct
-from cpecan_signal_tpu.core.window import WindowBand
-from cpecan_signal_tpu.models.params import AlignmentParams
-from cpecan_signal_tpu.models.state_machines import StateMachine
+from ..constants import KMER_LENGTH, PAIR_ALIGNMENT_PROB_1
+from ..core.anchors import anchors_in_window, get_split_points
+from ..core.band import band_construct
+from ..core.window import WindowBand
+from ..models.params import AlignmentParams
+from ..models.state_machines import StateMachine
 
 
 @dataclass

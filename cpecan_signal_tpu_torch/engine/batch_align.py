@@ -15,8 +15,7 @@ import time
 import numpy as np
 import torch
 
-from cpecan_signal_tpu.core.window import WindowBand, smooth_band
-
+from ..core.window import WindowBand, smooth_band
 from . import pipeline as pp
 from . import readpath
 from .align import AlignedPairs, SplitJob, _extract_pairs, window_grids

@@ -1,5 +1,6 @@
 """threeState problem packing + the emissions -> forward -> backward pipeline
-(port of engine/pallas_pipeline.py:32-214).
+and the E-step tallies on top of it (port of engine/pallas_pipeline.py:32-214,
+256-279, 426-447).
 
 Index conventions: per-x arrays are indexed by x (= x_idx + 1, so slot 0 is
 the x = -1 sentinel) shifted by +PADX so window cells left of the matrix stay
@@ -14,11 +15,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpecan_signal_tpu.constants import KMER_LENGTH, NUM_OF_KMERS
-from cpecan_signal_tpu.core.window import WindowBand
-from cpecan_signal_tpu.models.pore_model import PoreModel
-from cpecan_signal_tpu.models.state_machines import LOG_TENTH, make_signal_sm3
-
+from ..constants import KMER_LENGTH, NUM_OF_KMERS
+from ..core.window import WindowBand
+from ..models.pore_model import PoreModel
+from ..models.state_machines import LOG_TENTH, SHORT_GAP_X, make_signal_sm3
 from ..ops import fb_kernels as fk
 from .plan import EnginePlan, _build_plan, edge_table, plan_from
 
@@ -202,16 +202,69 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def run_sm3(plan: EnginePlan, W: int, batch: SM3Problem, stages: int = 3):
-    """emissions -> forward -> fused backward on a stacked batch; returns
-    (p (B, Dp, W) match posteriors, totals (B, Dp)).  Stage 3 (alignment)
-    only: the EM tallies of stage 4 are still to be ported."""
-    if stages != 3:
-        raise NotImplementedError("run_sm3 runs stage 3 only; backward_sm3 stage 4 "
-                                  "(EM tallies) is ROADMAP queue 2 item 4b")
+    """emissions -> forward -> fused backward on a stacked batch.  Stage 3
+    (alignment) returns (p (B, Dp, W) match posteriors, totals (B, Dp));
+    stage 4 (EM) returns the five outputs of the JAX ``run_sm3_pallas``:
+    (p, totals, exits (B, Dp), gacc (B, W), stats (B, 128)), the window
+    tallies of the one default group (the edges into shortGapX)."""
+    if stages not in (3, 4):
+        raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     Dp = batch.diag_scalars.shape[1] - 1
     edges = to_device(edge_table(plan), batch.xarr.device)
     E = fk.emissions_sm3(batch.x0, batch.yr0, batch.xarr, batch.evr, W, Dp)
     F = fk.forward_sm3(edges, E, batch.diag_scalars, batch.d_last, batch.start,
                        batch.tp_scalar)
-    return fk.backward_sm3(edges, plan.match_state, E, F, batch.diag_scalars,
-                           batch.d_last, batch.end, batch.tp_scalar)
+    out = fk.backward_sm3(edges, plan.match_state, E, F, batch.diag_scalars,
+                          batch.d_last, batch.end, batch.tp_scalar, stages=stages,
+                          wgroups=sm3_wgroups(plan) if stages == 4 else None)
+    if stages == 3:
+        return out
+    p, totals, exits, gacc, stats = out
+    return p, totals, exits[:, :, 0], gacc[:, 0], stats
+
+
+def sm3_wgroups(plan: EnginePlan) -> tuple[tuple[int, ...]]:
+    """The one stage-4 window group of the threeState E-step: the edges into
+    shortGapX, whose posteriors are the per-k-mer gapX tallies."""
+    return (tuple(i for i, e in enumerate(plan.edges) if e.to == SHORT_GAP_X),)
+
+
+def gapx_kmer_tallies(batch: SM3Problem, W: int, exits: torch.Tensor,
+                      gacc: torch.Tensor) -> torch.Tensor:
+    """Scatter the kernel's compact gapX outputs into per-k-mer tallies
+    (B, NUM_OF_KMERS + 2): exits[d] belongs to the x column x0[d] + W - 1,
+    gacc lane j to x0[0] + j, and xrank maps a column to its k-mer.  One
+    scatter_add_ over the batch, on the batch's device."""
+    B, Dp = exits.shape
+    lane = torch.arange(W, device=exits.device)
+    cols = torch.cat([batch.x0[:, :Dp] + (W - 1), batch.x0[:, :1] + lane], dim=1)
+    kmer = torch.gather(batch.xrank, 1, cols.long()).long()
+    t = torch.zeros((B, NUM_OF_KMERS + 2), dtype=exits.dtype, device=exits.device)
+    return t.scatter_add_(1, kmer, torch.cat([exits, gacc], dim=1))
+
+
+def unpack_stats(plan: EnginePlan, stats: np.ndarray):
+    """stats (B, 128) -> (trans (B, S, S), likelihood (B,)), numpy."""
+    stats = np.asarray(stats)
+    S = plan.n_states
+    trans = np.zeros((stats.shape[0], S, S))
+    for ei, e in enumerate(plan.edges):
+        trans[:, e.frm, e.to] += stats[:, ei]
+    return trans, stats[:, fk.LIK_LANE]
+
+
+def sm3_expectations(plan: EnginePlan, W: int, batch: SM3Problem):
+    """Batched threeState E-step (the port of sm3_pallas_expectations): the
+    stage-4 pipeline's per-edge tallies and likelihood (stats lanes) and its
+    window gapX tallies scattered per k-mer, summed over the batch on its
+    device.  Returns (trans (S, S), kmer_gap (NUM_OF_KMERS,), likelihood ())
+    as f32 tensors."""
+    _p, _totals, exits, gacc, stats = run_sm3(plan, W, batch, stages=4)
+    S = plan.n_states
+    n_e = len(plan.edges)
+    kmer_gap = gapx_kmer_tallies(batch, W, exits, gacc).sum(0)[:NUM_OF_KMERS]
+    onehot = np.zeros((n_e, S * S), dtype=np.float32)
+    for ei, e in enumerate(plan.edges):
+        onehot[ei, e.frm * S + e.to] += 1.0
+    trans = (stats[:, :n_e] @ to_device(onehot, stats.device)).sum(0).reshape(S, S)
+    return trans, kmer_gap, stats[:, fk.LIK_LANE].sum()

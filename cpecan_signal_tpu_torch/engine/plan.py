@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cpecan_signal_tpu.models.state_machines import StateMachine
+from ..models.state_machines import StateMachine
 
 
 @dataclass(frozen=True)

@@ -27,9 +27,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cpecan_signal_tpu.constants import KMER_SENTINEL, NUM_OF_KMERS, PAIR_ALIGNMENT_PROB_1
-from cpecan_signal_tpu.core.window import WindowBand
-from cpecan_signal_tpu.models.state_machines import LOG_TENTH
+from ..constants import KMER_SENTINEL, NUM_OF_KMERS, PAIR_ALIGNMENT_PROB_1
+from ..core.window import WindowBand
+from ..models.state_machines import LOG_TENTH
 
 from ..ops import fb_kernels as fk
 from . import pipeline as pp

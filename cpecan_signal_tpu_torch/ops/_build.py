@@ -33,6 +33,8 @@ _SIGNATURES = {
     "fb_emissions_sm3": ([_P] * 5 + [_I] * 7 + [_I, _P], _I),
     "fb_forward": ([_P] * 7 + [_I] * 9 + [_I, _P], _I),
     "fb_backward_sm3": ([_P] * 9 + [_I] * 10 + [_I, _P], _I),
+    # + exits, gacc, stats; + G and the MAX_G group bitmasks
+    "fb_backward_sm3_em": ([_P] * 12 + [_I] * 15 + [_I, _P], _I),
 }
 
 
@@ -77,12 +79,17 @@ def build() -> Path:
     return out
 
 
-@functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's C types."""
-    lib = ctypes.CDLL(str(build()))
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare every entry point's C types."""
+    lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed and bind."""
+    return bind(build())

@@ -1,4 +1,4 @@
-"""The three banded forward-backward kernels of the threeState path.
+"""The banded forward-backward kernels of the threeState path.
 
 Each public function dispatches on the device of its tensors:
 
@@ -12,7 +12,8 @@ Inputs keep the JAX package's layouts (ops/pallas_fb.py) at nh = 1:
 ``x0``/``yr0`` (B, Dp+1) int32, ``xarr`` (B, 13, lXp), ``evr`` (B, 2, lYp),
 ``diag_scalars`` (B, Dp+1, 1, 8) int32, ``d_last`` (B,), ``start``/``end``
 (B, S), ``tp_scalar`` (B, n) f32.  Outputs drop the TPU halo and padding:
-E (B, Dp+2, 3, W), F (B, Dp, S, W), p (B, Dp, W), totals (B, Dp).
+E (B, Dp+2, 3, W), F (B, Dp, S, W), p (B, Dp, W), totals (B, Dp), and at
+stage 4 (the EM tallies) exits (B, Dp, G), gacc (B, G, W), stats (B, 128).
 
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do not
 count), so a run can show which kernels its main path went through.
@@ -24,8 +25,7 @@ import ctypes
 
 import torch
 
-from cpecan_signal_tpu.models.state_machines import SRC_LOWER, SRC_MIDDLE
-
+from ..models.state_machines import SRC_LOWER, SRC_MIDDLE
 from ..engine.plan import EDGE_COLS, MAX_EDGE_IDS
 
 NEG_INF = -1e30  # finite stand-in for log(0): keeps f32 arithmetic NaN-free
@@ -34,8 +34,11 @@ N_XPARAMS = 13   # rows of the per-x parameter pack (see emissions_sm3)
 DS_FL, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS = range(8)
 MAX_STATES = 8   # csrc/fb_sm3.cu MAX_S
 MAX_EDGES = 32   # csrc/fb_sm3.cu MAX_EDGES
+MAX_GROUPS = 4   # csrc/fb_sm3.cu MAX_G: windowed tally groups at stage 4
+STATS_LANES = 128
+LIK_LANE = 64    # stats lane of the likelihood (lanes < 64: per-edge tallies)
 
-LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0}
+LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0, "backward_em": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +175,31 @@ def _lse_rows(v: torch.Tensor) -> torch.Tensor:
     return torch.where(m <= NEG_INF, NEG_INF, out)[:, 0]
 
 
+def group_masks(wgroups, n_edges: int) -> list[int]:
+    """``wgroups`` (G <= MAX_GROUPS tuples of edge indices) -> one int32
+    bitmask per group, bit e set when edge e belongs to it (padded with 0 to
+    MAX_GROUPS), as the stage-4 kernel takes them."""
+    if wgroups is None:
+        raise ValueError("stage 4 needs wgroups (engine/pipeline.sm3_wgroups for "
+                         "the threeState E-step)")
+    if not 1 <= len(wgroups) <= MAX_GROUPS:
+        raise ValueError(f"{len(wgroups)} window groups; the kernel takes 1-{MAX_GROUPS}")
+    masks = []
+    for members in wgroups:
+        m = 0
+        for e in members:
+            if not 0 <= e < n_edges:
+                raise ValueError(f"window group edge {e} outside [0, {n_edges})")
+            m |= 1 << e
+        masks.append(m - (1 << 32) if m >= 1 << 31 else m)   # as a C int
+    return masks + [0] * (MAX_GROUPS - len(masks))
+
+
 def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                     tp_scalar) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``backward_sm3``."""
+                     tp_scalar, stages: int = 3, wgroups=None):
+    """Plain version of ``backward_sm3``.  At stage 4 the EM tallies sum in
+    the JAX kernel's order: per diagonal the sum over lanes, then the sum
+    over diagonals from the last to the first."""
     B, De, _C, W = E.shape
     S = end.shape[1]
     Dp = F.shape[1]
@@ -185,6 +210,14 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=dev)
     P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
+    if stages == 4:
+        group_masks(wgroups, len(rows))          # the kernel's limits
+        G = len(wgroups)
+        exits = torch.zeros((B, Dp, G), dtype=torch.float32, device=dev)
+        gacc = torch.zeros((B, G, W), dtype=torch.float32, device=dev)
+        stats = torch.zeros((B, STATS_LANES), dtype=torch.float32, device=dev)
+    elif stages != 3:
+        raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     b1, b2 = neg, neg
     for d in range(Dp - 1, -1, -1):
         dsd = diag_scalars[:, d, 0, :]
@@ -224,8 +257,46 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         p = torch.exp(torch.clamp_max(Fd[:, m] + cur[:, m] - total[:, None], 0.0))
         ok = valid & (xmy > -d) & (xmy < d)
         P[:, d] = torch.where(ok, p, 0.0)
+        if stages == 4:
+            _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, E[:, d],
+                        tp_scalar, d_last, exits, gacc, stats)
         b2, b1 = b1, cur
+    if stages == 4:
+        return P, T, exits, gacc, stats
     return P, T
+
+
+def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, Ed, tp_scalar,
+                d_last, exits, gacc, stats) -> None:
+    """Stage-4 tallies of diagonal d (ops/pallas_fb.py:559-611), in place:
+    per-edge posteriors pe = exp(min(F_src[frm] + b[to] + E + tp - total, 0))
+    over the band cells of d >= 1, summed over lanes into the stats lanes;
+    the window groups' sums join the (B, G, W) tally, which leaves lane W-1
+    as exits[d] and shifts right by one lane where the x-window steps
+    (DS_XS[d] == 1).  The likelihood lane adds total[d] for 1 <= d <= d_last."""
+    B, S, W = cur.shape
+    neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=cur.device)
+    Fm1 = F[:, d - 1] if d >= 1 else neg
+    Fm2 = F[:, d - 2] if d >= 2 else neg
+    sfL = dsd[:, DS_FL]
+    srcs = (_shift(Fm1, sfL), _shift(Fm2, dsd[:, DS_FM]), _shift(Fm1, sfL + 1))
+    em_ok = valid & (d >= 1)
+    pg = [torch.zeros((B, W), dtype=torch.float32, device=cur.device) for _ in wgroups]
+    for ei, (src, frm, to, chans, scal) in enumerate(rows):
+        logp = _add_tp(srcs[src][:, frm] + cur[:, to] + _esum(Ed, chans), tp_scalar,
+                       scal) - total[:, None]
+        pe = torch.where(em_ok, torch.exp(torch.clamp_max(logp, 0.0)), 0.0)
+        stats[:, ei] += pe.sum(dim=1)
+        for g, members in enumerate(wgroups):
+            if ei in members:
+                pg[g] = pg[g] + pe
+    lik_ok = (d >= 1) & (d <= d_last)
+    stats[:, LIK_LANE] += torch.where(lik_ok, total, 0.0)
+    step = (dsd[:, DS_XS] == 1)[:, None]
+    for g in range(len(wgroups)):
+        gnew = gacc[:, g] + pg[g]
+        exits[:, d, g] = torch.where(step[:, 0], gnew[:, W - 1], 0.0)
+        gacc[:, g] = torch.where(step, _shift(gnew, -dsd[:, DS_XS], fill=0.0), gnew)
 
 
 # ---------------------------------------------------------------------------
@@ -339,17 +410,29 @@ def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tenso
 
 
 def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                 tp_scalar) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused backward pass at stage 3: the reverse recursion from b[d+1] /
+                 tp_scalar, stages: int = 3, wgroups=None):
+    """Fused backward pass.  Stage 3: the reverse recursion from b[d+1] /
     b[d+2] with E[d+1] / E[d+2] (E shifted with a 0.0 fill), the end vector
     injected at d_last, the per-diagonal total lse(F*b) ladd the
     match-through-diagonal correction, and the match posterior
     exp(min(F + b - total, 0)) masked to x > 0, y > 0.  Returns
     (p (B, Dp, W), totals (B, Dp)).  Replaces ops/pallas_fb.backward_sm3
-    at stages <= 3, nh = 1."""
+    at stages <= 3, nh = 1.
+
+    Stage 4 adds the EM tallies of ops/pallas_fb.backward_sm3 (stages=4,
+    ``wgroups``, 1-4 tuples of edge indices; the threeState E-step's one
+    group, the edges into shortGapX, is engine/pipeline.sm3_wgroups): per-edge
+    posterior sums in stats lanes 0..n_edges-1, the likelihood (sum of
+    total[d], 1 <= d <= d_last) in lane LIK_LANE, and per window group a
+    tally whose lane W-1 leaves as exits[d, g] where DS_XS[d] == 1 (x =
+    x0[d] + W - 1) and whose rest comes out as gacc[g] (lane j: x = x0[0] +
+    j).  Returns (p, totals, exits (B, Dp, G), gacc (B, G, W), stats
+    (B, 128))."""
+    if stages not in (3, 4):
+        raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     if not _on_cuda(edges, E, F, diag_scalars, d_last, end, tp_scalar):
         return backward_sm3_ref(edges, match_state, E, F, diag_scalars,
-                                d_last, end, tp_scalar)
+                                d_last, end, tp_scalar, stages, wgroups)
     B, De, C, W = E.shape
     S = end.shape[1]
     Dp = F.shape[1]
@@ -365,10 +448,21 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     _check_width(W)
     if not 0 <= match_state < S:
         raise ValueError(f"match_state {match_state} outside [0, {S})")
-    P = torch.empty((B, Dp, W), dtype=torch.float32, device=E.device)
-    T = torch.empty((B, Dp), dtype=torch.float32, device=E.device)
-    _launch("backward", "fb_backward_sm3", E.device,
-            _p(E), _p(F), _p(diag_scalars), _p(d_last), _p(end),
-            _p(tp_scalar), _p(edges), _p(P), _p(T), B, Dp, De, C, S, W,
-            tp_scalar.shape[1], edges.shape[0], Dp + 1, match_state)
-    return P, T
+    dev = E.device
+    P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
+    T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
+    args = (_p(E), _p(F), _p(diag_scalars), _p(d_last), _p(end), _p(tp_scalar),
+            _p(edges), _p(P), _p(T))
+    dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], edges.shape[0], Dp + 1,
+            match_state)
+    if stages == 3:
+        _launch("backward", "fb_backward_sm3", dev, *args, *dims)
+        return P, T
+    masks = group_masks(wgroups, edges.shape[0])
+    G = len(wgroups)
+    exits = torch.empty((B, Dp, G), dtype=torch.float32, device=dev)
+    gacc = torch.empty((B, G, W), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, STATS_LANES), dtype=torch.float32, device=dev)
+    _launch("backward_em", "fb_backward_sm3_em", dev, *args, _p(exits), _p(gacc),
+            _p(stats), *dims, G, *masks)
+    return P, T, exits, gacc, stats

@@ -14,12 +14,12 @@ import os
 
 import numpy as np
 
-from cpecan_signal_tpu.constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
-from cpecan_signal_tpu.core.anchors import filter_to_remove_overlap
-from cpecan_signal_tpu.core.kmers import sequence_kmer_ranks
-from cpecan_signal_tpu.io.fasta import reverse_complement, write_fasta
-from cpecan_signal_tpu.io.npread import NanoporeRead, ScaleParams, write_npread
-from cpecan_signal_tpu.models.pore_model import PoreModel, load_pore_model
+from .constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
+from .core.anchors import filter_to_remove_overlap
+from .core.kmers import sequence_kmer_ranks
+from .io.fasta import reverse_complement, write_fasta
+from .io.npread import NanoporeRead, ScaleParams, write_npread
+from .models.pore_model import PoreModel, load_pore_model
 
 NOISE_SD = 0.3   # model noise sd: lambda = noise_mean^3 / NOISE_SD^2
 

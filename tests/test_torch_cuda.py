@@ -18,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from cpecan_signal_tpu.core.band import band_construct
-from cpecan_signal_tpu.core.window import smooth_band
-from cpecan_signal_tpu.models.params import AlignmentParams
-from cpecan_signal_tpu.models.state_machines import make_signal_sm3
+from cpecan_signal_tpu_torch.core.band import band_construct
+from cpecan_signal_tpu_torch.core.window import smooth_band
+from cpecan_signal_tpu_torch.models.params import AlignmentParams
+from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3
 from cpecan_signal_tpu_torch import synthetic as syn
+from cpecan_signal_tpu_torch.em import sm3_em
 from cpecan_signal_tpu_torch.engine import pipeline as pp
 from cpecan_signal_tpu_torch.engine.align import SplitJob
 from cpecan_signal_tpu_torch.engine.batch_align import batch_align_jobs
@@ -78,7 +79,8 @@ def test_cuda_kernels_match_plain(W, cuda_device, tmp_path):
     p, tot = fk.backward_sm3(edges, plan.match_state, E, F, b.diag_scalars, b.d_last,
                              b.end, b.tp_scalar)
     torch.cuda.synchronize()
-    assert all(fk.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(fk.LAUNCHES[k] == before[k] + 1 for k in ("emissions", "forward", "backward"))
+    assert fk.LAUNCHES["backward_em"] == before["backward_em"]
     E_ref = fk.emissions_sm3_ref(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
     F_ref = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
     p_ref, tot_ref = fk.backward_sm3_ref(edges, plan.match_state, E, F, b.diag_scalars,
@@ -88,6 +90,113 @@ def test_cuda_kernels_match_plain(W, cuda_device, tmp_path):
     torch.testing.assert_close(p, p_ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(tot, tot_ref, rtol=1e-5, atol=1e-3)
     assert float(p.sum()) > 0.25 * float(b.d_last.sum())
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_cuda_backward_em_matches_plain(W, cuda_device, tmp_path):
+    """The stage-4 backward kernel against its plain version: p, totals,
+    exits and gacc to the stage-3 tolerances and 1e-6 (the same sums in the
+    same order), stats to atol 1e-3 + rtol 1e-5 (the kernel sums each lane
+    over the diagonals first, the plain version each diagonal over the lanes
+    first); with the default group and with four groups."""
+    rng = np.random.default_rng(W + 7)
+    pore = _pore(tmp_path, rng)
+    cases = _cases(pore, rng, 4, W)
+    Dp = max(wb.n_diagonals for *_x, wb in cases) + 5
+    plan, probs = None, []
+    for i, (target, events, _band, wb) in enumerate(cases):
+        plan, prob = pp.make_sm3_problem(pore, target, events, wb, device=cuda_device,
+                                         ragged_left=bool(i % 2), ragged_right=i < 2,
+                                         pad_lx=170, pad_ly=200, pad_d=Dp)
+        probs.append(prob)
+    b = pp.stack_problems(probs)
+    edges = pp.to_device(edge_table(plan), cuda_device)
+    E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
+    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    for groups in (pp.sm3_wgroups(plan), ((0, 1, 2), (3,), (6, 7), (4, 5))):
+        before = fk.LAUNCHES["backward_em"]
+        got = fk.backward_sm3(*args, stages=4, wgroups=groups)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["backward_em"] == before + 1
+        want = fk.backward_sm3_ref(*args, 4, groups)
+        p, tot, exits, gacc, stats = got
+        torch.testing.assert_close(p, want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(tot, want[1], rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(exits, want[2], rtol=0, atol=1e-6)
+        torch.testing.assert_close(gacc, want[3], rtol=0, atol=1e-6)
+        torch.testing.assert_close(stats, want[4], rtol=1e-5, atol=1e-3)
+        assert exits.shape == (len(probs), Dp, len(groups)) and float(exits.sum()) > 0.5
+
+
+@pytest.mark.parametrize("W, bases", [(640, (570, 630)), (1024, (960, 1000))])
+def test_cuda_backward_wide_window_matches_plain(W, bases, cuda_device, tmp_path):
+    """Wide windows (two unanchored reads) match the plain version at both
+    stages as the narrow ones do: 1024 lanes, the widest block the backward
+    kernel's 64 registers a thread allow, and 640 lanes, where stage 4's
+    dynamic shared memory (47 KB) and the static arrays together pass the
+    48 KB a block gets without the opt-in."""
+    rng = np.random.default_rng(23)
+    pore = _pore(tmp_path, rng)
+    plan, probs = None, []
+    while len(probs) < 2:
+        target = "".join(rng.choice(list("ACGT"), int(rng.integers(*bases))))
+        events, _path = syn.simulate_events(pore, target, rng)
+        wb = smooth_band(band_construct(np.zeros((0, 2), dtype=np.int64), len(target) - 5,
+                                        len(events), 50), width_multiple=128)
+        if wb.W == W:
+            plan, prob = pp.make_sm3_problem(pore, target, events, wb, device=cuda_device,
+                                             pad_lx=1000, pad_ly=1300, pad_d=2400)
+            probs.append(prob)
+    b = pp.stack_problems(probs)
+    edges = pp.to_device(edge_table(plan), cuda_device)
+    E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, b.diag_scalars.shape[1] - 1)
+    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    groups = pp.sm3_wgroups(plan)
+    p3, tot3 = fk.backward_sm3(*args)
+    got = fk.backward_sm3(*args, stages=4, wgroups=groups)
+    torch.cuda.synchronize()
+    want = fk.backward_sm3_ref(*args, 4, groups)
+    for p, tot in ((p3, tot3), got[:2]):
+        torch.testing.assert_close(p, want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(tot, want[1], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=1e-3)
+    assert float(p3.sum()) > 0.25 * float(b.d_last.sum())
+
+
+def test_cuda_em_budget_streaming_matches_resident(cuda_device, tmp_path):
+    """A zero budget keeps every EM bucket in pinned host memory and uploads
+    it at each step (row 12 of xarr then rewritten on the upload); two
+    E-steps give those of an all-resident build.  trans and the likelihood
+    are equal; kmer_gap is held to rtol 1e-5, since the per-k-mer
+    scatter_add_ adds its f32 terms (all >= 0) with atomics in no fixed
+    order."""
+    rng = np.random.default_rng(31)
+    pore = _pore(tmp_path, rng)
+    jobs = [sm3_em.EmJob(pore, t, e, band, bool(i % 2), i < 3)
+            for i, (t, e, band, _wb) in enumerate(_cases(pore, rng, 6, 64))]
+    res_budget = sm3_em._EmBudget(cuda_device, budget=float("inf"))
+    resident = sm3_em.build_sm3_em_buckets(jobs, device=cuda_device, budget=res_budget)
+    str_budget = sm3_em._EmBudget(cuda_device, budget=0)
+    streamed = sm3_em.build_sm3_em_buckets(jobs, device=cuda_device, budget=str_budget)
+    assert all(b.resident and b.batch.xarr.is_cuda for b in resident)
+    assert not any(b.resident for b in streamed)
+    assert all(t.is_pinned() for b in streamed for t in b.batch)
+    assert str_budget.streamed == res_budget.resident > 0
+    kmer_gaps = np.log(rng.dirichlet(np.ones(4096))).astype(np.float64)
+    trans = {"match_continue": float(np.log(0.8)), "match_from_gap_x": float(np.log(0.7))}
+    before = fk.LAUNCHES["backward_em"]
+    for step in ((None, None), (trans, kmer_gaps)):
+        (t_r, k_r, l_r), (t_s, k_s, l_s) = (sm3_em.sm3_em_step(bs, *step)
+                                            for bs in (resident, streamed))
+        np.testing.assert_array_equal(t_s, t_r)
+        assert l_s == l_r
+        np.testing.assert_allclose(k_s, k_r, rtol=1e-5, atol=0)
+        assert k_r.sum() > 0
+    assert fk.LAUNCHES["backward_em"] == before + 4 * len(resident)
 
 
 def test_cuda_wrappers_reject_bad_input(cuda_device):

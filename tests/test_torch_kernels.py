@@ -124,8 +124,17 @@ def test_run_sm3_matches_pallas_pipeline(case):
     np.testing.assert_allclose(tot.numpy(), case["tot"], atol=F_ATOL, rtol=F_RTOL)
     # about one aligned pair per two diagonals carries the posterior mass
     assert p.sum() > 0.25 * case["prob"].d_last.sum()
-    with pytest.raises(NotImplementedError, match="stage 4"):
-        tpp.run_sm3(case["plan"], case["W"], case["prob"], stages=4)
+    # stage 4 (EM) adds the tallies and leaves p and the totals as they are
+    # (the tallies themselves: tests/test_torch_em.py)
+    p4, tot4, exits, gacc, stats = tpp.run_sm3(case["plan"], case["W"], case["prob"],
+                                               stages=4)
+    torch.testing.assert_close(p4, p, rtol=0, atol=0)
+    torch.testing.assert_close(tot4, tot, rtol=0, atol=0)
+    B, Dp = tot.shape
+    assert exits.shape == (B, Dp) and gacc.shape == (B, case["W"])
+    assert stats.shape == (B, fk.STATS_LANES)
+    with pytest.raises(ValueError, match="stage 3 or 4"):
+        tpp.run_sm3(case["plan"], case["W"], case["prob"], stages=2)
 
 
 def test_make_sm3_problem_matches_jax():

@@ -136,13 +136,16 @@ def test_ladd_matches_jax():
 
 
 def test_resolve_device(monkeypatch):
-    """cpu by default and from $SIGALIGN_PLATFORM; cuda without a usable card
-    raises instead of falling back; unknown platforms raise."""
+    """cuda by default, cpu only when asked for ($SIGALIGN_PLATFORM or the
+    argument); cuda without a usable card raises instead of falling back;
+    unknown platforms raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("SIGALIGN_PLATFORM", raising=False)
-    assert resolve_device() == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="'cuda' requested"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setenv("SIGALIGN_PLATFORM", "cpu")
     assert resolve_device() == torch.device("cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("SIGALIGN_PLATFORM", "cuda")
     with pytest.raises(RuntimeError, match="no usable CUDA"):
         resolve_device()

@@ -181,7 +181,7 @@ def test_signal_align_cli_matches_jax_cli(tmp_path, monkeypatch):
     from cpecan_signal_tpu.cli import signal_align as jsa
 
     model, ref, reads = _read_set(tmp_path, 2)
-    monkeypatch.delenv("SIGALIGN_PLATFORM", raising=False)
+    monkeypatch.setenv("SIGALIGN_PLATFORM", "cpu")
     args = ["-d", reads, "-r", ref, "-T", model, "-C", model, "-s"]
     assert sa.main(args + ["-o", str(tmp_path / "port")]) == 0
     assert jsa.main(args + ["-o", str(tmp_path / "jax")]) == 0
@@ -202,7 +202,7 @@ def test_failed_strand_keeps_later_reads_attributed(tmp_path, monkeypatch):
     reported as an error and does not shift the pairs of the reads after
     it: their TSV rows equal those of a run where nothing fails."""
     model, ref, reads = _read_set(tmp_path, 3, seed=8)
-    monkeypatch.delenv("SIGALIGN_PLATFORM", raising=False)
+    monkeypatch.setenv("SIGALIGN_PLATFORM", "cpu")
     monkeypatch.setattr(sa.random, "shuffle", lambda paths: None)
     args = ["-d", reads, "-r", ref, "-T", model, "-C", model, "-s", "--retries", "0"]
     assert sa.main(args + ["-o", str(tmp_path / "clean")]) == 0

@@ -5,15 +5,19 @@
 Builds the CUDA kernels of cpecan_signal_tpu_torch from csrc/ (and prints
 ptxas's registers and spills for each), holds each kernel against its plain
 PyTorch version on the card (narrow windows, and a 1024-lane one that takes
-the backward kernel's wide instance), then drives the port's two paths on 50
-synthetic two-strand reads:
+the backward kernel's wide instance) at the threeState, vanilla and echelon
+plans, then drives the port's paths on 50 synthetic two-strand reads:
 
   * alignment: cli/signal_align -s (emissions, forward, stage-3 backward),
     checked against the CPU plain path and timed;
   * training: cli/train_models, threeState, 3 EM iterations on the card
     (emissions, forward, stage-4 backward), the likelihood required not to
     fall once the first M-step has normalized the model, and one E-step
-    checked against the CPU plain path.
+    checked against the CPU plain path;
+  * the generic window machines: cli/signal_align with no machine flag
+    (vanilla), --fourState and --echelon (forward, stage-3 backward; echelon
+    with its per-state posteriors), each checked against the CPU plain path;
+    vanilla timed.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after.  Each phase prints one line; any failure raises and the
@@ -34,13 +38,21 @@ import sys
 import tempfile
 import time
 
-KERNELS = ("emissions", "forward", "backward", "backward_em")
+KERNELS = ("emissions", "forward", "backward", "backward_em", "backward_pstates")
 REPLACES = {
     "emissions": "cpecan_signal_tpu/ops/pallas_fb.py:162",
     "forward": "cpecan_signal_tpu/ops/pallas_fb.py:343",
     "backward": "cpecan_signal_tpu/ops/pallas_fb.py:627",
     "backward_em": "cpecan_signal_tpu/ops/pallas_fb.py:627 (stages=4, wgroups)",
+    "backward_pstates": "cpecan_signal_tpu/ops/pallas_fb.py:627 (stages=3, pstates)",
 }
+# the generic window machines through the CLI: signal_align flags, the
+# backward mode each launches, and how many of the smallest reads its
+# card-vs-CPU check takes (the CPU plain echelon path takes ~50 ms a
+# diagonal: the smallest read's two jobs of ~860 diagonals, about a minute)
+MACHINES = {"vanilla": ([], "backward", 5), "fourState": (["--fourState"], "backward", 5),
+            "echelon": (["--echelon"], "backward_pstates", 1)}
+ECHELON_PSTATES = (1, 2, 3, 4, 5)   # match1..match5
 SOURCE = "cpecan_signal_tpu_torch/csrc/fb_sm3.cu"
 # tolerances of the kernel-vs-plain comparison on the card
 E_RTOL = 1e-6                 # emissions: the same f32 ops, no FMA contraction
@@ -57,19 +69,54 @@ PAIR_TOL, PROB_TOL = 1, 1.2e-3
 SEED = 20261016
 EM_ITERATIONS = 3
 WIDE_W = 1024   # past the backward kernel's NARROW_THREADS (csrc/fb_sm3.cu)
+# threeState kernel checks against the plain versions (W, Dp), B = 64; the
+# stage-4 backward at every shape but (64, 4096).  The kernels line carries
+# the numbers of LINE_SHAPE (backward_pstates: echelon at W = 128, Dp = 1024)
+KERNEL_SHAPES = ((64, 1024), (128, 1024), (64, 4096), (128, 4096))
+LINE_SHAPE = (128, 4096)
+# the generic plans' kernel checks, B problems each: (W, Dp, against the
+# plain versions); vanilla also at a width and depth of the CLI's windows
+GENERIC_B = 64
+GENERIC_SHAPES = {"vanilla": ((128, 1024, True), (128, 4096, False), (256, 4096, True)),
+                  "echelon": ((128, 1024, True), (128, 4096, False))}
+# anchors every 80 events with expansion 50 give 256-lane windows
+WIDE_BAND = {256: (80, 50)}
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (every input read once, every output written once) at the H100
 # SXM's 3.35 TB/s and its f32 operations at 67 TFLOP/s (no tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per window cell, counted from csrc/fb_sm3.cu for the
-# threeState edge table (8 edges, 3 states; a logAdd is 14 operations, an
-# exp or a log 1): emissions 4 Gaussians of 6 and 4 adds and clamps;
-# forward 8 edges x (2 adds + logAdd); backward the recursion (8 x 16), the
-# correction (3 x 16), the two logsumexps and the posterior; stage 4 adds
-# 8 edges x (4 adds, min, exp, 1-2 tally adds).
-OPS_PER_CELL = {"emissions": 28, "forward": 128, "backward": 220, "backward_em": 290}
+LADD_OPS = 14   # the reference logAdd, counted in csrc/fb_sm3.cu
+
+
+def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
+                 wgroups=()) -> int:
+    """f32 operations per window cell of one launch, counted from
+    csrc/fb_sm3.cu and the launch's edge table (an exp or a log is 1).
+    An edge adds each of its terms (emission class, per-cell channels,
+    scalar transitions) to its source and logAdds the sum: terms + 14.
+    emissions: 4 Gaussians of 6, then 4 adds and clamps (threeState only).
+    forward: its edges.  backward (stage 3): the recursion's edges, the
+    middle edges of the match-through-diagonal correction, per state 11
+    (3 adds forming the two logsumexps' terms, and in each a max, a
+    subtract, an exp and an add), per posterior channel 4 (add, subtract,
+    min, exp) and 7 a cell (the logsumexps' log and add, the 3 mask tests).
+    stage 4 adds per edge 6 + terms (source + b, terms, - total, min, exp,
+    mask, tally add), per window group its member edges + 2 (tally add,
+    shift) and the likelihood's add."""
+    rows = edges.tolist()
+    terms = [1 + sum(1 for v in r[4:] if v >= 0) for r in rows]
+    edge_ops = sum(t + LADD_OPS for t in terms)
+    if kernel == "emissions":
+        return 28
+    if kernel == "forward":
+        return edge_ops
+    middle = sum(t + LADD_OPS for t, r in zip(terms, rows) if r[0] == 1)
+    ops = edge_ops + middle + 11 * n_states + 4 * n_post + 7
+    if kernel == "backward_em":
+        ops += sum(6 + t for t in terms) + sum(len(g) + 2 for g in wgroups) + 1
+    return ops
 
 
 def card_line() -> str:
@@ -122,13 +169,23 @@ def rows_bytes(t, d_last, rows_past: int) -> int:
     return int(rows.sum()) * per_row
 
 
-def bound(name: str, moved: int, cells: int) -> tuple[float, str]:
+def bound(ops: int, moved: int, cells: int) -> tuple[float, str]:
     """(bound_ms, "bytes" or "operations") of one kernel call moving
     ``moved`` bytes (its inputs read once, its outputs written once) and
-    working on ``cells`` cells."""
+    doing ``ops`` operations on each of ``cells`` cells."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_CELL[name] * cells / F32_OPS_PER_S * 1e3
+    t_ops = ops * cells / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def recursion_inputs(E, F, ds, d_last, small: int) -> tuple[int, int]:
+    """Input bytes of a forward and of a backward launch: the recursions
+    stop at d_last, so they read E, F and the diagonal scalars up to it
+    (backward: E to d_last + 2, the scalars to d_last + 1), and the small
+    arguments (d_last, edges, scalar terms) once."""
+    return (rows_bytes(E, d_last, 0) + rows_bytes(ds, d_last, 0) + small,
+            rows_bytes(E, d_last, 2) + rows_bytes(F, d_last, 0)
+            + rows_bytes(ds, d_last, 1) + small)
 
 
 def ptxas_report(nvcc: str, flags, sources, out: str) -> subprocess.Popen:
@@ -265,9 +322,10 @@ def grid_cells(E) -> int:
 
 
 def phase_kernels(pore, device, rng) -> dict:
-    """Each kernel against its plain version on the same CUDA tensors; the
-    stage-4 backward at (W, Dp) in {64, 128} x 1024 and (128, 4096).  Times,
-    bounds and the line's numbers are those of W = 128, Dp = 4096, B = 64."""
+    """Each kernel against its plain version on the same CUDA tensors at B =
+    64 and (W, Dp) in KERNEL_SHAPES (the stage-4 backward where W = 128 or
+    Dp = 1024).  The line's numbers, times and bounds are those of
+    LINE_SHAPE."""
     import torch
 
     from cpecan_signal_tpu_torch.engine import pipeline as pp
@@ -275,8 +333,8 @@ def phase_kernels(pore, device, rng) -> dict:
     from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
     stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
-    for W, Dp in ((64, 1024), (128, 1024), (64, 4096), (128, 4096)):
-        em = (W, Dp) != (64, 4096)
+    for W, Dp in KERNEL_SHAPES:
+        em = W == 128 or Dp == 1024
         plan, b = kernel_problems(pore, W, Dp, 64, rng, device)
         edges = pp.to_device(edge_table(plan), device)
         groups = pp.sm3_wgroups(plan)
@@ -302,6 +360,11 @@ def phase_kernels(pore, device, rng) -> dict:
         em_out = run_b4() if em else ()
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
+        runs = {"emissions": (run_e, 5), "forward": (run_f, 3), "backward": (run_b, 3)}
+        if em:
+            runs["backward_em"] = (run_b4, 3)
+        ms = {k: cuda_ms(fn, reps) for k, (fn, reps) in runs.items()}
+        head = f"kernels W={W} Dp={Dp} B=64: first call {t_first:.3f} s"
         E_ref, e_plain = timed_once(lambda: fk.emissions_sm3_ref(b.x0, b.yr0, b.xarr,
                                                                  b.evr, W, Dp))
         F_ref, f_plain = timed_once(lambda: fk.forward_sm3_ref(
@@ -314,12 +377,10 @@ def phase_kernels(pore, device, rng) -> dict:
               "F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
               "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL)),
               "p": bool(torch.allclose(P, P_ref, atol=P_ATOL, rtol=0))}
-        times = {"emissions": (cuda_ms(run_e, 5), e_plain),
-                 "forward": (cuda_ms(run_f, 3), f_plain),
-                 "backward": (cuda_ms(run_b, 3), b_plain)}
+        plain = {"emissions": e_plain, "forward": f_plain, "backward": b_plain}
         line = ""
         if em:
-            ref4, b4_plain = timed_once(lambda: fk.backward_sm3_ref(
+            ref4, plain["backward_em"] = timed_once(lambda: fk.backward_sm3_ref(
                 edges, m, E, F, *bargs, 4, groups))
             e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
                           (max_err(a, r) for a, r in zip(em_out, ref4))))
@@ -330,45 +391,43 @@ def phase_kernels(pore, device, rng) -> dict:
                 "stats": bool(torch.allclose(em_out[4], ref4[4], atol=STATS_ATOL,
                                              rtol=STATS_RTOL))})
             errs["backward_em"] = max(e4.values())
-            times["backward_em"] = (cuda_ms(run_b4, 3), b4_plain)
             line = ("; stage 4 err " + ", ".join(f"{k} {v:.3g}" for k, v in e4.items())
                     + f" (exits/gacc atol {WIN_ATOL}, stats atol {STATS_ATOL} rtol "
                     f"{STATS_RTOL})")
-        print(f"kernels W={W} Dp={Dp} B=64: first call {t_first:.3f} s; "
-              f"E err {errs['emissions']:.3g} (rtol {E_RTOL}); F err {errs['forward']:.3g} "
-              f"(atol {F_ATOL} rtol {F_RTOL}); p err {max_err(P, P_ref):.3g} "
-              f"(atol {P_ATOL}); totals err {max_err(T, T_ref):.3g}{line}; ok {ok}; "
-              "ms kernel/plain: "
-              + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in times.items()),
+        print(f"{head}; E err {errs['emissions']:.3g} (rtol {E_RTOL}); F err "
+              f"{errs['forward']:.3g} (atol {F_ATOL} rtol {F_RTOL}); p err "
+              f"{max_err(P, P_ref):.3g} (atol {P_ATOL}); totals err {max_err(T, T_ref):.3g}"
+              f"{line}; ok {ok}; ms kernel/plain: "
+              + ", ".join(f"{k} {ms[k]:.3f}/{plain[k]:.3f}" for k in ms),
               flush=True)
         if not all(ok.values()):
             raise AssertionError(f"kernel disagrees with its plain version at "
                                  f"W={W} Dp={Dp}: {ok}")
         for k, e in errs.items():
             stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
-        if (W, Dp) == (128, 4096):
-            # the recursions stop at d_last: they read E, F and the diagonal
-            # scalars up to it (backward: E to d_last + 2, the scalars to
-            # d_last + 1) and write every row of their outputs
+        if (W, Dp) == LINE_SHAPE:
             dl = b.d_last
             cells = int((dl.long() + 1).sum()) * W
-            small = nbytes(dl, edges, b.tp_scalar)
-            fwd_in = rows_bytes(E, dl, 0) + rows_bytes(b.diag_scalars, dl, 0)
-            bwd_in = (rows_bytes(E, dl, 2) + rows_bytes(F, dl, 0)
-                      + rows_bytes(b.diag_scalars, dl, 1) + nbytes(b.end))
-            moved = {"emissions": (nbytes(b.x0, b.yr0, b.xarr, b.evr, E), grid_cells(E)),
-                     "forward": (fwd_in + small + nbytes(b.start, F), cells),
-                     "backward": (bwd_in + small + nbytes(P, T), cells),
-                     "backward_em": (bwd_in + small + nbytes(*em_out), cells)}
-            for k, (ms, plain) in times.items():
-                stats[k]["ms"], stats[k]["plain_ms"] = ms, plain
-                stats[k]["bound_ms"], stats[k]["bound_by"] = bound(k, *moved[k])
+            fwd_in, bwd_in = recursion_inputs(E, F, b.diag_scalars, dl,
+                                              nbytes(dl, edges, b.tp_scalar))
+            S = plan.n_states
+            moved = {"emissions": (ops_per_cell("emissions", edges),
+                                   nbytes(b.x0, b.yr0, b.xarr, b.evr, E), grid_cells(E)),
+                     "forward": (ops_per_cell("forward", edges),
+                                 fwd_in + nbytes(b.start, F), cells),
+                     "backward": (ops_per_cell("backward", edges, S),
+                                  bwd_in + nbytes(b.end, P, T), cells),
+                     "backward_em": (ops_per_cell("backward_em", edges, S, wgroups=groups),
+                                     bwd_in + nbytes(b.end, *em_out), cells)}
+            for k in ms:
+                stats[k]["ms"], stats[k]["plain_ms"] = ms[k], plain[k]
+                stats[k]["bound_ms"], stats[k]["bound_by"] = bound(*moved[k])
         del E, F, P, T, E_ref, F_ref, P_ref, T_ref, b, em_out
         torch.cuda.empty_cache()
     return stats
 
 
-def read_jobs(paths, ref_seq, model_path, params):
+def read_jobs(paths, ref_seq, model_path, params, sm_type="threeState"):
     """Per-read split-job lists of the given npRead files (host prep)."""
     from cpecan_signal_tpu_torch.cli.vanilla_align import (guide_alignment,
                                                            prepare_read, strand_jobs)
@@ -380,7 +439,7 @@ def read_jobs(paths, ref_seq, model_path, params):
     for path in paths:
         npr = load_npread(path)
         guide = guide_alignment(ref_seq, npr.twoD_read, params.constraint_diagonal_trim)
-        prep = prepare_read(ref_seq, npr, params, sm_type="threeState", guide=guide,
+        prep = prepare_read(ref_seq, npr, params, sm_type=sm_type, guide=guide,
                             substitute=None, template_model=pore,
                             complement_model=pore)
         if prep["status"] != "ok":
@@ -493,6 +552,232 @@ def phase_em_agreement(paths, ref_seq, model, device) -> None:
           f"relative {worst['likelihood']:.3g} (tol {LIK_RTOL})", flush=True)
 
 
+def generic_problems(pore, name: str, W: int, Dp: int, B: int, rng, device,
+                     n_distinct: int = 4, width_multiple: int | None = None,
+                     bases: tuple[int, int] | None = None):
+    """(plan, WindowProblem batch) of B problems of the vanilla or echelon
+    machine (template strand) whose window is W lanes and whose diagonals
+    fit Dp: ``n_distinct`` synthetic reads (ragged ends mixed) repeated
+    across the batch, so the host builds few emission grids.  Reads are
+    anchored every 20 events with expansion 20 (WIDE_BAND's spacing and
+    expansion at its widths), or with ``bases`` drawn unanchored (expansion
+    50) and the window rounded to ``width_multiple``."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.core.band import band_construct
+    from cpecan_signal_tpu_torch.core.window import smooth_band
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.models import state_machines as sms
+
+    make = {"vanilla": sms.make_signal_vanilla, "echelon": sms.make_signal_echelon}[name]
+    probs, plan = [], None
+    while len(probs) < n_distinct:
+        n_bases = int(rng.integers(*bases)) if bases else int(0.40 * Dp)
+        target = "".join(rng.choice(list("ACGT"), n_bases))
+        events, path = syn.simulate_events(pore, target, rng)
+        n_kmers = len(target) - 5
+        if bases:
+            band = band_construct(np.zeros((0, 2), dtype=np.int64), n_kmers, len(events), 50)
+        else:
+            every, expansion = WIDE_BAND.get(W, (20, 20))
+            band = band_construct(syn.path_anchors(path, n_kmers, len(events), every),
+                                  n_kmers, len(events), expansion)
+        wb = smooth_band(band, width_multiple=width_multiple or W)
+        if wb.W != W or wb.n_diagonals > Dp:
+            continue
+        plan, prob = pp.make_window_problem(make(pore, target, events, "template"), wb,
+                                            device=device, ragged_left=bool(len(probs) % 2),
+                                            ragged_right=len(probs) < 2, pad_d=Dp)
+        probs.append(prob)
+    batch = pp.stack_window_problems(probs)
+    idx = torch.arange(B, device=device) % n_distinct
+    return plan, pp.WindowProblem(*(f[idx] for f in batch))
+
+
+def phase_generic_kernels(pore, device, rng, stats) -> None:
+    """The forward and stage-3 backward kernels at the vanilla plan (3
+    states, 7 edges, 8 channels) and the echelon plan (7 states, 46 edges,
+    17 channels; backward with the per-state posteriors), B = 64 (4 distinct
+    problems repeated) at GENERIC_SHAPES: timed, and where marked held
+    against their plain versions and these timed; then echelon on a
+    1024-lane window.  The backward_pstates entry of the kernels line takes
+    the W = 128, Dp = 1024 numbers (the plain echelon backward takes about a
+    minute there); errors join ``stats``."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine.plan import edge_table
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    for name, shapes in GENERIC_SHAPES.items():
+        pstates = ECHELON_PSTATES if name == "echelon" else None
+        bname = "backward_pstates" if pstates else "backward"
+        for W, Dp, check in shapes:
+            plan, b = generic_problems(pore, name, W, Dp, GENERIC_B, rng, device)
+            edges = pp.to_device(edge_table(plan), device)
+            fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+
+            def run_f():
+                return fk.forward_sm3(*fargs)
+
+            F = run_f()
+
+            def run_b():
+                return fk.backward_sm3(edges, plan.match_state, b.E, F, b.diag_scalars,
+                                       b.d_last, b.end, b.tp_scalar, pstates=pstates)
+
+            P, T = run_b()
+            torch.cuda.synchronize()
+            head = (f"kernels {name} plan ({plan.n_states} states, {len(plan.edges)} edges, "
+                    f"{b.E.shape[2]} channels) W={W} Dp={Dp} B={GENERIC_B}")
+            ms = {"forward": cuda_ms(run_f, 3), bname: cuda_ms(run_b, 3)}
+            plain = {}
+            if check:
+                F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+                (P_ref, T_ref), plain[bname] = timed_once(lambda: fk.backward_sm3_ref(
+                    edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end,
+                    b.tp_scalar, pstates=pstates))
+                errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref),
+                        "totals": max_err(T, T_ref)}
+                ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+                      "p": errs["p"] <= P_ATOL,
+                      "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))}
+                head += f": errors {errs}; ok {ok}"
+                if not all(ok.values()):
+                    raise AssertionError(f"{head}: kernel disagrees with its plain version")
+                stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"],
+                                                      errs["F"])
+                stats[bname]["max_abs_err"] = max(stats[bname]["max_abs_err"],
+                                                  errs["p"], errs["totals"])
+            dl = b.d_last
+            cells = int((dl.long() + 1).sum()) * W
+            fwd_in, bwd_in = recursion_inputs(b.E, F, b.diag_scalars, dl,
+                                              nbytes(dl, edges, b.tp_scalar))
+            n_post = len(pstates) if pstates else 1
+            bounds = {"forward": bound(ops_per_cell("forward", edges), fwd_in
+                                       + nbytes(b.start, F), cells),
+                      bname: bound(ops_per_cell(bname, edges, plan.n_states, n_post),
+                                   bwd_in + nbytes(b.end, P, T), cells)}
+            print(f"{head}; ms kernel/plain/bound: "
+                  + ", ".join(f"{k} {ms[k]:.3f}/"
+                              + (f"{plain[k]:.3f}" if k in plain else "not timed")
+                              + f"/{bounds[k][0]:.4f} ({bounds[k][1]})" for k in ms),
+                  flush=True)
+            if name == "echelon" and (W, Dp) == (128, 1024):
+                stats[bname].update(ms=ms[bname], plain_ms=plain[bname],
+                                    bound_ms=bounds[bname][0], bound_by=bounds[bname][1])
+            del F, P, T, b
+            torch.cuda.empty_cache()
+
+    # echelon on a 1024-lane window: the backward kernel's 1024-thread
+    # instance with 3 x 7 carry rows of 1026 floats (86 KB of shared memory)
+    plan, b = generic_problems(pore, "echelon", WIDE_W, 360, 2, rng, device, n_distinct=2,
+                               width_multiple=WIDE_W, bases=(150, 170))
+    edges = pp.to_device(edge_table(plan), device)
+    fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    F = fk.forward_sm3(*fargs)
+    bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    P, T = fk.backward_sm3(*bargs, pstates=ECHELON_PSTATES)
+    torch.cuda.synchronize()
+    F_ref = fk.forward_sm3_ref(*fargs)
+    P_ref, T_ref = fk.backward_sm3_ref(*bargs, pstates=ECHELON_PSTATES)
+    errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref), "totals": max_err(T, T_ref)}
+    ok = (torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL) and errs["p"] <= P_ATOL
+          and torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))
+    print(f"kernels echelon W={WIDE_W} Dp={b.diag_scalars.shape[1] - 1} B=2: errors "
+          f"{errs}; ok {ok}", flush=True)
+    if not ok or float(P.sum()) <= 0:
+        raise AssertionError("echelon kernels disagree with their plain versions "
+                             f"at W={WIDE_W}: {errs}")
+    stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"], errs["F"])
+    stats["backward_pstates"]["max_abs_err"] = max(stats["backward_pstates"]["max_abs_err"],
+                                                   errs["p"], errs["totals"])
+
+
+def phase_generic_cli(tmp, reads, ref, model, paths, fk, machine: str) -> dict:
+    """cli/signal_align with one generic machine on the read set on the
+    card: the launches of this run alone, the batch's seconds by stage."""
+    from cpecan_signal_tpu_torch.cli import signal_align
+
+    flags, bname, _n = MACHINES[machine]
+    out = os.path.join(tmp, f"out_{machine}")
+    buf = io.StringIO()
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = signal_align.main(["-d", reads, "-r", ref, "-o", out, "-T", model, "-C", model,
+                                *flags])
+    t_cli = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    with open(os.path.join(out, "posteriors.tsv")) as fh:
+        rows = [line.split("\t") for line in fh]
+    labels = {r[3] for r in rows}
+    stages = re.search(r"seconds by stage: (.*)", buf.getvalue())
+    print(f"cli {machine}: rc={rc} {len(rows)} TSV rows, {len(labels)}/{len(paths)} reads, "
+          f"launches {launches}, {t_cli:.2f} s; batch seconds by stage: "
+          f"{stages.group(1) if stages else None}", flush=True)
+    if rc != 0 or labels != {os.path.basename(p) for p in paths}:
+        raise AssertionError(f"{machine} path failed: rc or reads")
+    if launches["forward"] < 1 or launches[bname] < 1:
+        raise AssertionError(f"{machine} path never launched the forward or {bname} kernel")
+    return launches
+
+
+def phase_generic_agreement(small_paths, ref_seq, model, device, machine: str) -> None:
+    """batch_align_jobs of one machine over the jobs of the given reads:
+    the card's kernels against the CPU plain path."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine.batch_align import batch_align_jobs
+    from cpecan_signal_tpu_torch.models.params import cli_defaults
+
+    params = cli_defaults()
+    jobs = [j for jl in read_jobs(small_paths, ref_seq, model, params, machine) for j in jl]
+    t0 = time.perf_counter()
+    got = batch_align_jobs(jobs, params.threshold, device=device)
+    t1 = time.perf_counter()
+    want = batch_align_jobs(jobs, params.threshold, device=torch.device("cpu"))
+    t2 = time.perf_counter()
+    worst = [pairs_agree(g, w) for g, w in zip(got, want)]
+    miss = max(m for m, _ in worst)
+    drift = max(d for _, d in worst)
+    print(f"agreement {machine}: {len(jobs)} jobs of {len(small_paths)} reads, cuda vs cpu "
+          f"({t1 - t0:.2f} s / {t2 - t1:.2f} s): max pairs differing {miss} (tol {PAIR_TOL}), "
+          f"max posterior drift {drift:.3g} (tol {PROB_TOL})", flush=True)
+    if miss > PAIR_TOL or drift > PROB_TOL:
+        raise AssertionError(f"{machine}: cuda and cpu paths disagree")
+
+
+def phase_vanilla_timing(paths, ref_seq, model, device, card: str) -> None:
+    """batch_align_stream of the default machine (vanilla) over the read
+    set, median of 3 runs, each from prepared split jobs to pairs: host
+    packing of the emission grids, the card's work, the host extraction."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine.batch_align import batch_align_stream
+    from cpecan_signal_tpu_torch.models.params import cli_defaults
+
+    params = cli_defaults()
+    per_read = read_jobs(paths, ref_seq, model, params, "vanilla")
+    runs = []
+    for _ in range(3):
+        timing = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_align_stream(iter(per_read), params.threshold, device=device, timing=timing)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, timing))
+    t_med, timing = sorted(runs, key=lambda r: r[0])[1]
+    n_jobs = sum(len(jl) for jl in per_read)
+    print(f"timing vanilla: {len(paths)} reads ({n_jobs} split jobs) batch_align_stream "
+          f"median of 3 {t_med:.4f} s (runs {', '.join(f'{t:.4f}' for t, _ in runs)}): "
+          f"{len(paths) / t_med:.2f} reads/s; median run by stage "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(timing.items()))
+          + f"; card {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -540,6 +825,7 @@ def main() -> int:
         pore = syn.write_pore_model(model, rng)
         stats = phase_kernels(pore, device, rng)
         phase_wide(pore, device, rng, stats)
+        phase_generic_kernels(pore, device, rng, stats)
 
         # --- alignment path through the CLI; the reference and the reads
         # come from a generator of their own, so that the read set does not
@@ -617,8 +903,20 @@ def main() -> int:
               f"{t_long:.4f} s; card {card}", flush=True)
 
         # --- training path through the CLI, and one E-step against the CPU
-        launches["backward_em"] = phase_train(tmp, reads, ref, model, fk)["backward_em"]
+        path_launches = [launches, phase_train(tmp, reads, ref, model, fk)]
         phase_em_agreement(paths, ref_seq, model, device)
+
+        # --- the generic window machines through the CLI, each against the
+        # CPU plain path on the jobs of the 5 smallest reads (echelon: the
+        # smallest, MACHINES); vanilla timed
+        small = [paths[i] for i in np.argsort(sizes)[:5]]
+        for machine in MACHINES:
+            path_launches.append(phase_generic_cli(tmp, reads, ref, model, paths, fk,
+                                                   machine))
+            phase_generic_agreement(small[:MACHINES[machine][2]], ref_seq, model, device,
+                                    machine)
+        phase_vanilla_timing(paths, ref_seq, model, device, card)
+        launches = {k: sum(pl[k] for pl in path_launches) for k in KERNELS}
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

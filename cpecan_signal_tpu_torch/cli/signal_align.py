@@ -1,10 +1,12 @@
 """Multi-read alignment CLI: the signalAlign.py equivalent (port of
-cli/signal_align.py:104-204, 207-363, single process, threeState).
+cli/signal_align.py:104-204, 207-363, single process).
 
 Enumerates npRead files (shuffled, capped at --nb_files), pools every read's
 template and complement split jobs into device batches (one process, one
 device, engine/batch_align), and writes the 15-column posterior TSV
-(signalAlign.py:54-146).
+(signalAlign.py:54-146).  The machine is vanilla by default, threeState
+(-s), fourState or echelon.  Every machine takes the pooled route,
+echelon included (the JAX CLI aligns echelon reads one at a time).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..models.params import cli_defaults
 from ..models.pore_model import load_pore_model
 from ..utils.device import resolve_device
 from .vanilla_align import (finish_read, guide_alignment, prepare_read,
-                            require_threestate, strand_jobs)
+                            require_ported, strand_jobs)
 
 
 class TargetRegions:
@@ -40,11 +42,11 @@ class TargetRegions:
         return any(s <= end and start <= e for s, e in self.regions)
 
 
-def _batch_align_all(work, device):
+def _batch_align_all(work, device, timing=None):
     """Pool every read's split jobs (reads x strands x splits) into bucketed
     device batches, then write per-read part TSVs.  ``work`` is a list of
     (work index, work item); returns [(work index, label, message, part path
-    or None)].
+    or None)].  ``timing`` gathers batch_align_stream's seconds by stage.
 
     A read's ``owners`` entries (which read and strand each job belongs to)
     are recorded only once all its strands' jobs are collected, so a read
@@ -100,7 +102,8 @@ def _batch_align_all(work, device):
             preps.append((label, widx, prep, contig, params, out_tsv))
             yield read_jobs
 
-    _jobs, frags = batch_align_stream(per_read_jobs(), threshold, device=device)
+    _jobs, frags = batch_align_stream(per_read_jobs(), threshold, device=device,
+                                      timing=timing)
 
     out = []
     for key, (label, widx, prep, contig, params, out_tsv) in enumerate(preps):
@@ -142,7 +145,7 @@ def main(argv=None):
     sm_type = ("threeState" if args.strawMan else
                "fourState" if args.fourState else
                "echelon" if args.echelon else "vanilla")
-    require_threestate(sm_type)
+    require_ported(sm_type)
     if args.jobs > 1:
         raise NotImplementedError("--jobs > 1 (per-read worker processes) is not "
                                   "ported: ROADMAP queue 1 item 11")
@@ -174,7 +177,8 @@ def main(argv=None):
     work = [(p, ref_seq, contig, args.templateModel, args.complementModel,
              params, sm_type, out_tsv, args.substitute, args.targetRegions)
             for p in paths]
-    results = {r[0]: r for r in _batch_align_all(list(enumerate(work)), device)}
+    timing: dict = {}
+    results = {r[0]: r for r in _batch_align_all(list(enumerate(work)), device, timing)}
 
     # failure recovery: re-run errored reads, keyed by work index — never by
     # basename, which can collide across directories
@@ -185,7 +189,8 @@ def main(argv=None):
         for widx in redo:
             print(f"signal_align - retrying {results[widx][1]}", file=sys.stderr)
         results.update((r[0], r) for r in
-                       _batch_align_all([(widx, work[widx]) for widx in redo], device))
+                       _batch_align_all([(widx, work[widx]) for widx in redo], device,
+                                        timing))
     ok = 0
     with open(out_tsv, "a") as merged:
         for _widx, label, msg, part in sorted(results.values()):
@@ -196,6 +201,8 @@ def main(argv=None):
                     merged.write(fh.read())
                 os.unlink(part)
     print(f"signal_align - aligned {ok}/{len(results)} reads -> {out_tsv}")
+    print("signal_align - seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(timing.items())))
     return 0
 
 

@@ -1,10 +1,12 @@
 """Signal alignment of one read + CLI: the vanillaAlign equivalent (port of
-cli/vanilla_align.py:34-335, 337-433, threeState).
+cli/vanilla_align.py:34-335, 337-433).
 
 Given a reference sequence, an npRead and pore models, aligns the template
 and complement event sequences to the reference with anchor banding on the
 device-batched path and writes the 15-column posterior TSV
-(writePosteriorProbs, vanillaAlign.c:26-96).  The guide alignment comes from
+(writePosteriorProbs, vanillaAlign.c:26-96).  The machine is vanilla by
+default, threeState (-s), fourState (-f) or echelon (-e); trained models
+(-y / -z, .hmm files) replace the defaults.  The guide alignment comes from
 the built-in seed-chain anchorer (both strands tried) or from an exonerate
 CIGAR file.
 """
@@ -22,28 +24,23 @@ from ..core.anchors import (cigar_to_anchor_pairs, filter_to_remove_overlap,
                              remap_anchor_pairs_with_offset)
 from ..core.kmers import kmer_rank
 from ..engine.align import AlignedPairs, collect_split_jobs
+from ..em.accumulators import load_signal_hmm, signal_sm_params
 from ..engine.batch_align import assemble_pairs, batch_align_jobs
 from ..io.cigar import CigarRecord, parse_cigar_line
 from ..io.fasta import read_first_sequence, reverse_complement
 from ..io.npread import NanoporeRead, load_npread
 from ..models.params import AlignmentParams, cli_defaults
 from ..models.pore_model import PoreModel, load_pore_model, scale_model
-from ..models.state_machines import make_signal_sm3
+from ..models.state_machines import (make_signal_echelon, make_signal_sm3,
+                                      make_signal_sm4, make_signal_vanilla)
 from ..utils.device import resolve_device
 
-# machines the JAX CLIs offer that the port does not align yet
-UNPORTED_MACHINES = {
-    "fourState": "ROADMAP queue 1 item 7 (generic window machines)",
-    "vanilla": "ROADMAP queue 1 item 7 (generic window machines)",
-    "echelon": "ROADMAP queue 1 item 7 (generic window machines)",
-    "threeStateHdp": "ROADMAP queue 1 item 7 (threeStateHdp alignment)",
-}
 
-
-def require_threestate(sm_type: str) -> None:
-    if sm_type != "threeState":
-        raise NotImplementedError(f"{sm_type} alignment is not ported yet: "
-                                  f"{UNPORTED_MACHINES.get(sm_type, 'unknown machine')}")
+def require_ported(sm_type: str) -> None:
+    """threeStateHdp alignment (a NanoporeHDP density) is not ported yet."""
+    if sm_type == "threeStateHdp":
+        raise NotImplementedError("threeStateHdp alignment is not ported yet: "
+                                  "ROADMAP queue 1 item 9 (with the hdp package)")
 
 
 def guide_alignment(ref_seq: str, read_seq: str, trim: int) -> CigarRecord | None:
@@ -110,47 +107,69 @@ def write_posterior_probs(fh, read_label: str, contig: str, match_model: np.ndar
                           scale: float, shift: float, events: np.ndarray,
                           target: str, forward: bool, event_offset: int,
                           ref_offset: int, pairs: AlignedPairs, strand: str) -> None:
-    """15-column TSV rows (writePosteriorProbs, vanillaAlign.c:26-96)."""
+    """15-column TSV rows (writePosteriorProbs, vanillaAlign.c:26-96).  The
+    per-row arithmetic runs on arrays and the k-mer columns are looked up
+    once per reference position: an echelon read gives about 10^5 rows."""
     ref_len = len(target)
-    ref_len_in_events = ref_len - KMER_LENGTH
-    for prob, x_i, y0 in pairs.as_tuples():
-        if (strand == "t" and forward) or (strand == "c" and not forward):
-            x_adj = x_i + ref_offset
-        else:
-            x_adj = ref_len_in_events - (x_i + (ref_len - ref_offset))
-        y = y0 + event_offset
-        p = prob / PAIR_ALIGNMENT_PROB_1
-        mean, noise, duration = events[y]
-        descaled_mean = (mean - shift) / scale
-        k_i = target[x_i:x_i + KMER_LENGTH]
-        rank = kmer_rank(k_i)
-        if rank < len(match_model) - 2:
-            e_level = match_model[rank, 0]
-            e_noise = match_model[rank, 2]
-        else:
-            e_level = e_noise = 0.0
-        descaled_e_level = (e_level - shift) / scale
-        ref_kmer = k_i if ((strand == "t" and forward) or
-                           (strand == "c" and not forward)) else \
-            reverse_complement(k_i)
-        fh.write(f"{contig}\t{x_adj}\t{ref_kmer}\t{read_label}\t{strand}\t{y}\t"
-                 f"{mean:f}\t{noise:f}\t{duration:f}\t{k_i}\t{e_level:f}\t"
-                 f"{e_noise:f}\t{p:f}\t{descaled_mean:f}\t{descaled_e_level:f}\n")
+    same_dir = (strand == "t" and forward) or (strand == "c" and not forward)
+    x_adj = (pairs.x + ref_offset if same_dir
+             else (ref_len - KMER_LENGTH) - (pairs.x + (ref_len - ref_offset)))
+    y = pairs.y + event_offset
+    p = pairs.probs / PAIR_ALIGNMENT_PROB_1
+    ev = events[y]
+    descaled_mean = (ev[:, 0] - shift) / scale
+    ux, ui = np.unique(pairs.x, return_inverse=True)
+    kmers = [target[x_i:x_i + KMER_LENGTH] for x_i in ux.tolist()]
+    ranks = np.array([kmer_rank(k) for k in kmers], dtype=np.int64)
+    known = ranks < len(match_model) - 2
+    e_level = np.zeros(len(ux))
+    e_noise = np.zeros(len(ux))
+    e_level[known] = match_model[ranks[known], 0]
+    e_noise[known] = match_model[ranks[known], 2]
+    descaled_e = ((e_level - shift) / scale).tolist()
+    e_level, e_noise = e_level.tolist(), e_noise.tolist()
+    ref_kmers = kmers if same_dir else [reverse_complement(k) for k in kmers]
+    chunk = 1 << 16
+    for lo in range(0, len(y), chunk):
+        sl = slice(lo, lo + chunk)
+        fh.write("".join(
+            f"{contig}\t{xa}\t{ref_kmers[u]}\t{read_label}\t{strand}\t{yy}\t"
+            f"{mean:f}\t{noise:f}\t{duration:f}\t{kmers[u]}\t{e_level[u]:f}\t"
+            f"{e_noise[u]:f}\t{pp:f}\t{dm:f}\t{descaled_e[u]:f}\n"
+            for xa, u, yy, (mean, noise, duration), pp, dm in zip(
+                x_adj[sl].tolist(), ui[sl].tolist(), y[sl].tolist(), ev[sl].tolist(),
+                p[sl].tolist(), descaled_mean[sl].tolist())))
 
 
-def make_sm_factory(sm_type: str, pore: PoreModel):
-    """State-machine factory of one strand: (target, events) -> machine."""
-    require_threestate(sm_type)
-    return lambda t, e: make_signal_sm3(pore, t, e)
+def make_sm_factory(sm_type: str, pore: PoreModel, strand: str, transitions=None,
+                    kmer_gap_probs=None, skip_bins=None):
+    """State-machine factory of one strand ("t" or "c"): (target, events)
+    -> machine, with trained transitions and k-mer gap probabilities
+    (threeState, fourState) or skip bins (vanilla, echelon) where given."""
+    require_ported(sm_type)
+    sname = "template" if strand == "t" else "complement"
+    if sm_type == "threeState":
+        return lambda t, e: make_signal_sm3(pore, t, e, transitions, kmer_gap_probs)
+    if sm_type == "fourState":
+        return lambda t, e: make_signal_sm4(pore, t, e, transitions, kmer_gap_probs)
+    if sm_type == "vanilla":
+        return lambda t, e: make_signal_vanilla(pore, t, e, sname, skip_bins)
+    if sm_type == "echelon":
+        return lambda t, e: make_signal_echelon(pore, t, e, sname, skip_bins)
+    raise ValueError(f"unsupported state machine type {sm_type}")
 
 
 def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
                  *, sm_type: str, guide: CigarRecord | None,
-                 substitute: str | None, template_model, complement_model) -> dict:
+                 substitute: str | None, template_model, complement_model,
+                 trained: dict | None = None) -> dict:
     """Phase 1 of a read: guide, reference trimming, per-strand event windows
     and anchors, and state-machine factories — everything up to running the
-    engine, so a multi-read caller can pool split jobs across reads."""
-    require_threestate(sm_type)
+    engine, so a multi-read caller can pool split jobs across reads.
+    ``trained`` maps a strand ("t", "c") to the keyword arguments of
+    make_sm_factory from a trained model (em/accumulators.signal_sm_params)."""
+    require_ported(sm_type)
+    trained = trained or {}
     if guide is None:
         guide = guide_alignment(ref_seq, npread.twoD_read,
                                 params.constraint_diagonal_trim)
@@ -212,7 +231,7 @@ def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
              npread.complement_events, c_events, c_anchors, guide.end1, ev_lo_c)):
         scaled = scale_model(model, sparams.scale, sparams.shift, sparams.var,
                              sparams.scale_sd, sparams.var_sd)
-        make_sm = (make_sm_factory(sm_type, scaled)
+        make_sm = (make_sm_factory(sm_type, scaled, strand, **trained.get(strand, {}))
                    if len(strand_events) else None)
         strand_ctx.append({
             "strand": strand, "target": target, "raw_target": raw_target,
@@ -277,6 +296,9 @@ def main(argv=None):
     ap.add_argument("--fourState", "-f", action="store_true")
     ap.add_argument("--echelon", "-e", action="store_true")
     ap.add_argument("--threeStateHdp", action="store_true")
+    ap.add_argument("--templateHmm", "-y", default=None,
+                    help="trained template HMM to load (vanillaAlign -y)")
+    ap.add_argument("--complementHmm", "-z", default=None)
     ap.add_argument("--substitute", "-M", default=None)
     ap.add_argument("--threshold", "-D", type=float, default=0.01)
     ap.add_argument("--diagonalExpansion", "-x", type=int, default=50)
@@ -289,7 +311,7 @@ def main(argv=None):
                "fourState" if args.fourState else
                "echelon" if args.echelon else
                "threeStateHdp" if args.threeStateHdp else "vanilla")
-    require_threestate(sm_type)
+    require_ported(sm_type)
     device = resolve_device()
     contig, ref_seq = read_first_sequence(args.reference)
     npread = load_npread(args.npRead)
@@ -301,10 +323,16 @@ def main(argv=None):
         with open(args.cigar) as fh:
             guide = parse_cigar_line(fh.readline())
 
+    # trained models (vanillaAlign -y/-z, vanillaAlign.c:223-226): transitions
+    # and k-mer gap probabilities, or skip bins, by the file's model type
+    trained = {strand: signal_sm_params(load_signal_hmm(path))
+               for strand, path in (("t", args.templateHmm), ("c", args.complementHmm))
+               if path}
     prep = prepare_read(ref_seq, npread, params, sm_type=sm_type, guide=guide,
                         substitute=args.substitute,
                         template_model=load_pore_model(args.templateModel),
-                        complement_model=load_pore_model(args.complementModel))
+                        complement_model=load_pore_model(args.complementModel),
+                        trained=trained)
     if prep["status"] != "ok":
         print(f"{args.readLabel} unmapped", file=sys.stderr)
         return 1

@@ -1,6 +1,8 @@
-// Banded forward-backward kernels for the threeState signal-alignment path,
+// Banded forward-backward kernels of the signal-alignment and EM paths,
 // written for Hopper (sm_90a) with a plain C interface (bound from Python with
-// ctypes, see ops/_build.py and ops/fb_kernels.py).
+// ctypes, see ops/_build.py and ops/fb_kernels.py).  The recursions are
+// generic over a machine's edge table (threeState, fourState, vanilla,
+// echelon); the emissions kernel is threeState's.
 //
 // Layouts (all row-major, contiguous; B problems, Dp diagonals, W window
 // lanes, S states, C emission channels):
@@ -10,7 +12,9 @@
 //   E             (B, De >= Dp+2, C, W)   emissions; rows >= Dp are 0
 //   ds            (B, ds_rows >= Dp+1, 8) int32 DS_* scalars (nh = 1)
 //   F             (B, Dp, S, W)   forward log-probs
-//   P             (B, Dp, W)      match posteriors;  T (B, Dp) totals
+//   P             (B, Dp, P, W)   posteriors of the states in pmask (P = its
+//                                 set bits; the match state alone: (B, Dp, W));
+//                                 T (B, Dp) totals
 //   edges         (n_edges, 12)   int32 edge table (engine/plan.edge_table)
 //   exits         (B, Dp, G)      stage 4: window-group mass leaving lane W-1
 //   gacc          (B, G, W)       stage 4: window-group tallies left at d = 0
@@ -28,7 +32,7 @@
 #define NEG_INF (-1e30f)
 #define LOG_UNDERFLOW 7.5f
 #define MAX_S 8
-#define MAX_EDGES 32
+#define MAX_EDGES 64  // edge e's stage-4 tally sits in stats lane e < LIK_LANE
 #define MAX_IDS 4
 #define EDGE_COLS (4 + 2 * MAX_IDS)
 #define N_XPARAMS 13
@@ -294,11 +298,12 @@ __global__ void forward_kernel(const float* __restrict__ E,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3: backward + per-diagonal totals + match posteriors (stages 3, 4)
+// Kernel 3: backward + per-diagonal totals + posteriors (stages 3, 4)
 // ---------------------------------------------------------------------------
 // Replaces cpecan_signal_tpu/ops/pallas_fb.py:backward_sm3 (_backward_kernel)
-// at stage 3 (EM = false) and at stage 4 with window groups (EM = true), with
-// one problem per row (nh = 1).
+// at stage 3 (EM = false), with the match posterior or the echelon
+// per-state posteriors (pstates, :537-547), and at stage 4 with window
+// groups (EM = true), with one problem per row (nh = 1).
 // Bound: the same serial diagonal chain as the forward kernel, plus two
 // block-wide logsumexp reductions per diagonal (the total over S x W and the
 // match-through-diagonal correction).  Design: the forward kernel's shape
@@ -307,6 +312,18 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // reduced together (warp shuffles, then one shared-memory pass over the
 // warps), three __syncthreads per diagonal in all.  B never leaves the
 // chip: the kernel writes only P and the totals.
+//
+// Posteriors (pstates).  pmask lists the states whose posterior
+// exp(min(F[d][s] + b[d][s] - total, 0)) p carries, one channel each in
+// state order: the match state alone for alignment, the five matchN states
+// for echelon (one channel per k-mer count an event may emit).  Once the
+// total is known each thread holds b[d][s] of every state in registers, so
+// a channel costs one F load, an add, a subtract, an exp and one store; the
+// state loop is unrolled over MAX_S with the mask as a runtime test, so one
+// instance (PSTATES = true) serves every machine.  A mask of one state (the
+// match posterior of alignment, and always at stage 4) takes the instances
+// with PSTATES = false, which select that state alone, so the paths that
+// write one channel do not carry the mask loop's registers.
 //
 // Stage 4 (the EM E-step's tallies, ops/pallas_fb.py:559-624) adds, once
 // the total of diagonal d is known, one posterior per edge and cell,
@@ -332,7 +349,7 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // 700 W, tools/torch_backward_launch_bounds.py), so windows that fit
 // NARROW_THREADS lanes take that second instance.
 #define NARROW_THREADS 896
-template <bool EM, int MAX_THREADS>
+template <bool EM, bool PSTATES, int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
     backward_kernel(const float* __restrict__ E, const float* __restrict__ F,
                     const int* __restrict__ ds, const int* __restrict__ d_last,
@@ -341,7 +358,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                     float* __restrict__ T, float* __restrict__ exits,
                     float* __restrict__ gacc_out, float* __restrict__ stats,
                     int Dp, int De, int C, int S, int W, int n_tp, int n_edges,
-                    int ds_rows, int match_state, int G, unsigned gm0,
+                    int ds_rows, unsigned pmask, int G, unsigned gm0,
                     unsigned gm1, unsigned gm2, unsigned gm3) {
   // 3 carry rows x S x (W + 2); at stage 4 then n_edges x W per-thread
   // partial sums and 2 parity rows x G x W for the window-group shift
@@ -371,12 +388,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int* dsb = ds + (size_t)b * ds_rows * 8;
   const float* Eb = E + (size_t)b * De * C * W;
   const float* Fb = F + (size_t)b * Dp * S * W;
-  float* Pb = P + (size_t)b * Dp * W;
+  const int NP = PSTATES ? __popc(pmask) : 1;  // posterior channels
+  const int match_state = __ffs((int)pmask) - 1;  // PSTATES = false: its state
+  float* Pb = P + (size_t)b * Dp * NP * W;
   float* Tb = T + (size_t)b * Dp;
 
   for (int d = Dp - 1; d >= 0; --d) {
     if (d > dlast) {  // b = NEG_INF, total = NEG_INF, posterior 0 exactly
-      Pb[(size_t)d * W + j] = 0.0f;
+      for (int c = 0; c < NP; ++c) Pb[((size_t)d * NP + c) * W + j] = 0.0f;
       if (j == 0) Tb[d] = NEG_INF;
       // nothing is tallied above d_last, so the window-group tallies are
       // still 0 and their shifts move zeros: only exits[d] = 0 is written
@@ -471,16 +490,30 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const float total = (d >= 1 && d < Dp - 1) ? ladd(t1, t2) : t1;
     if (j == 0) Tb[d] = total;
 
-    // --- posterior match probability, masked to x > 0 and y > 0
-    float mf = 0.0f, mb = 0.0f;
+    // --- posteriors of the states in pmask, masked to x > 0 and y > 0
+    const bool pos_ok = valid && xmy > -d && xmy < d;
+    if constexpr (PSTATES) {
+      int pc = 0;
 #pragma unroll
-    for (int s = 0; s < MAX_S; ++s)
-      if (s == match_state) {
-        mf = Fd[s * W + j];
-        mb = acc[s];
+      for (int s = 0; s < MAX_S; ++s) {
+        if ((pmask >> s) & 1u) {
+          const float pv = expf(
+              fminf(__fsub_rn(__fadd_rn(Fd[s * W + j], acc[s]), total), 0.0f));
+          Pb[((size_t)d * NP + pc) * W + j] = pos_ok ? pv : 0.0f;
+          ++pc;
+        }
       }
-    const float pv = expf(fminf(__fsub_rn(__fadd_rn(mf, mb), total), 0.0f));
-    Pb[(size_t)d * W + j] = (valid && xmy > -d && xmy < d) ? pv : 0.0f;
+    } else {
+      float mf = 0.0f, mb = 0.0f;
+#pragma unroll
+      for (int s = 0; s < MAX_S; ++s)
+        if (s == match_state) {
+          mf = Fd[s * W + j];
+          mb = acc[s];
+        }
+      const float pv = expf(fminf(__fsub_rn(__fadd_rn(mf, mb), total), 0.0f));
+      Pb[(size_t)d * W + j] = pos_ok ? pv : 0.0f;
+    }
 
     // --- stage 4: per-edge posteriors of diagonal d (d >= 1, band cells),
     // summed in the plain version's order: src + b[to], + E channels, + tp
@@ -515,7 +548,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
         part[e * W + j] = __fadd_rn(part[e * W + j], pe);
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
-          if (g < G && ((gmask[g] >> e) & 1u)) pg[g] = __fadd_rn(pg[g], pe);
+          if (g < G && e < 32 && ((gmask[g] >> e) & 1u))
+            pg[g] = __fadd_rn(pg[g], pe);
       }
       if (d >= 1) lik = __fadd_rn(lik, total);
 #pragma unroll
@@ -576,15 +610,27 @@ static cudaError_t carry_smem(const void* fn, int S, int W, size_t extra,
 
 // One backward launch: a block of W threads per problem, ``extra`` floats
 // of dynamic shared memory past the carry rows.
-template <bool EM, int MAX_THREADS, typename... Args>
+template <bool EM, bool PSTATES, int MAX_THREADS, typename... Args>
 static cudaError_t launch_backward(int B, int S, int W, size_t extra,
                                    cudaStream_t stream, Args... args) {
   size_t smem;
-  cudaError_t err = carry_smem((const void*)backward_kernel<EM, MAX_THREADS>,
-                               S, W, extra, &smem);
+  cudaError_t err = carry_smem(
+      (const void*)backward_kernel<EM, PSTATES, MAX_THREADS>, S, W, extra,
+      &smem);
   if (err != cudaSuccess) return err;
-  backward_kernel<EM, MAX_THREADS><<<B, W, smem, stream>>>(args...);
+  backward_kernel<EM, PSTATES, MAX_THREADS><<<B, W, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Stage 3 at one of its four instances: several posterior channels or one,
+// and the launch bound that fits W.
+template <bool PSTATES, typename... Args>
+static cudaError_t launch_stage3(int B, int S, int W, cudaStream_t stream,
+                                 Args... args) {
+  if (W <= NARROW_THREADS)
+    return launch_backward<false, PSTATES, NARROW_THREADS>(B, S, W, 0, stream,
+                                                           args...);
+  return launch_backward<false, PSTATES, 1024>(B, S, W, 0, stream, args...);
 }
 
 extern "C" {
@@ -619,23 +665,26 @@ int fb_forward(const float* E, const int* ds, const int* d_last,
   return (int)cudaGetLastError();
 }
 
+// Stage 3: pmask (bits < S) lists the states of P's channels, in order;
+// 1 << match_state for the match posterior alone.
 int fb_backward_sm3(const float* E, const float* F, const int* ds,
                     const int* d_last, const float* end, const float* tps,
                     const int* edges, float* P, float* T, int B, int Dp, int De,
                     int C, int S, int W, int n_tp, int n_edges, int ds_rows,
-                    int match_state, int device, void* stream) {
+                    int pmask, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (pmask <= 0 || (pmask >> S) != 0) return (int)cudaErrorInvalidValue;
   float* none = nullptr;
-  if (W <= NARROW_THREADS)
-    return (int)launch_backward<false, NARROW_THREADS>(
-        B, S, W, 0, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges,
-        P, T, none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-        match_state, 0, 0u, 0u, 0u, 0u);
-  return (int)launch_backward<false, 1024>(
-      B, S, W, 0, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P,
-      T, none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-      match_state, 0, 0u, 0u, 0u, 0u);
+  if (__builtin_popcount(pmask) == 1)
+    return (int)launch_stage3<false>(
+        B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
+        none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
+        (unsigned)pmask, 0, 0u, 0u, 0u, 0u);
+  return (int)launch_stage3<true>(
+      B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
+      none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
+      (unsigned)pmask, 0, 0u, 0u, 0u, 0u);
 }
 
 // Stage 4: G (1..MAX_G) window groups; gm<g> is group g's edge bitmask
@@ -649,11 +698,12 @@ int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
                        int gm3, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
-  return (int)launch_backward<true, 1024>(
+  if (G < 1 || G > MAX_G || match_state < 0 || match_state >= S)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_backward<true, false, 1024>(
       B, S, W, (size_t)(n_edges + 2 * G) * W, (cudaStream_t)stream, E, F, ds,
       d_last, end, tps, edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp,
-      n_edges, ds_rows, match_state, G, (unsigned)gm0, (unsigned)gm1,
+      n_edges, ds_rows, 1u << match_state, G, (unsigned)gm0, (unsigned)gm1,
       (unsigned)gm2, (unsigned)gm3);
 }
 

@@ -1,5 +1,5 @@
-"""Split jobs and aligned-pair records (jax-free copies of engine/align.py:26-94
-and engine/window.window_grids).
+"""Split jobs and aligned-pair records (jax-free copies of engine/align.py:26-94;
+``window_grids`` lives in engine/window.py and stays importable here).
 
 An alignment problem is split into independent sub-matrices at large anchor
 gaps (getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps,
@@ -17,9 +17,9 @@ import numpy as np
 from ..constants import KMER_LENGTH, PAIR_ALIGNMENT_PROB_1
 from ..core.anchors import anchors_in_window, get_split_points
 from ..core.band import band_construct
-from ..core.window import WindowBand
 from ..models.params import AlignmentParams
 from ..models.state_machines import StateMachine
+from .window import window_grids  # noqa: F401  (re-exported)
 
 
 @dataclass
@@ -91,15 +91,3 @@ def collect_split_jobs(
                              ragged_left or i > 0,
                              ragged_right or i < len(splits) - 1))
     return jobs
-
-
-def window_grids(wband: WindowBand):
-    """(D, W) x/y/valid grids for the window (host-side numpy)."""
-    D, W = wband.n_diagonals, wband.W
-    d_grid = np.arange(D)[:, None]
-    j_grid = np.arange(W)[None, :]
-    xmy = wband.w0[:, None] + 2 * j_grid
-    x = (d_grid + xmy) // 2
-    y = (d_grid - xmy) // 2
-    valid = (xmy >= wband.xmyL[:, None]) & (xmy <= wband.xmyR[:, None])
-    return x, y, valid

@@ -1,11 +1,15 @@
-"""Device-batched alignment of split jobs (port of engine/batch_align.py:89-162,
-282-402, threeState lane).
+"""Device-batched alignment of split jobs (port of engine/batch_align.py:51-162,
+282-402).
 
 The CLIs collect SplitJobs (reads x strands x splits, engine/align.py); this
 module stages every threeState job into the device-packed fast lane
 (engine/readpath.py), dispatches waves while later reads are still being
 prepared, collects all waves with one copy, and re-routes the rare job whose
-pairs overflowed the compact extraction through the full-grid path.
+pairs overflowed the compact extraction through the full-grid path.  Jobs
+of the generic window machines (vanilla, fourState, echelon) are packed on
+the host into buckets of one machine and one window width, every bucket
+dispatched before any result is awaited, and their posterior grids copied
+back once and thresholded on the host.
 """
 
 from __future__ import annotations
@@ -15,12 +19,16 @@ import time
 import numpy as np
 import torch
 
+from ..constants import PAIR_ALIGNMENT_PROB_1
 from ..core.window import WindowBand, smooth_band
+from ..models.state_machines import ECH_GAPX
 from . import pipeline as pp
 from . import readpath
-from .align import AlignedPairs, SplitJob, _extract_pairs, window_grids
+from .align import AlignedPairs, SplitJob, _extract_pairs
+from .window import window_grids
 
 MAX_BUCKET = 64      # full-grid problems per device batch (bounds host packing)
+BUCKET_E_BYTES = 4 << 30   # host-built E per generic bucket (pinned, uploaded)
 WAVE_EVENTS = 8000   # events staged per dispatched wave
 
 
@@ -60,6 +68,88 @@ def _run_full_grid(jobs, wbands, idxs, threshold, device, out):
                                                   jobs[i].off_y))
 
 
+def _extract_multi_window(p_states, wb, threshold, off_x, off_y):
+    """Echelon pairs from the per-state posteriors p_states (P, D, W) of
+    matchN states n = 1..P in the window layout: a cell passing the
+    threshold in state n emits the pairs (x + k - 1, y - 1), k < n
+    (diagonalCalculationMultiPosteriorMatchProbs, pairwiseAligner.c:797-839,
+    as engine/fb.extract_multi_pairs)."""
+    x, y, valid = window_grids(wb)
+    probs, xs, ys = [], [], []
+    for si in range(p_states.shape[0]):
+        pg = np.where(valid & (x > 0) & (y > 0), p_states[si], 0.0)
+        mask = pg >= threshold
+        if not mask.any():
+            continue
+        pq = np.floor(pg[mask] * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+        cx = x[mask].astype(np.int64)
+        cy = y[mask].astype(np.int64)
+        for k in range(si + 1):          # state si + 1 emits si + 1 k-mers
+            probs.append(pq)
+            xs.append(cx + k - 1 + off_x)
+            ys.append(cy - 1 + off_y)
+    if not probs:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, z
+    return np.concatenate(probs), np.concatenate(xs), np.concatenate(ys)
+
+
+def _generic_chunks(wbands, idxs, plan_channels):
+    """Split one (machine, width) group, in job order, into buckets of at
+    most MAX_BUCKET problems whose E (padded to the bucket's longest job)
+    stays within BUCKET_E_BYTES; a job larger than that alone gets a bucket
+    of its own."""
+    chunks, cur, dmax = [], [], 0
+    for i in idxs:
+        wb = wbands[i]
+        d = max(dmax, wb.n_diagonals)
+        e_bytes = (len(cur) + 1) * (d + 2) * plan_channels * wb.W * 4
+        if cur and (len(cur) >= MAX_BUCKET or e_bytes > BUCKET_E_BYTES):
+            chunks.append(cur)
+            cur, d = [], wb.n_diagonals
+        cur.append(i)
+        dmax = d
+    return chunks + [cur] if cur else chunks
+
+
+def _run_generic_buckets(jobs, wbands, groups, threshold, device, out, timing=None):
+    """Generic window machines (vanilla, fourState, echelon): pack and
+    dispatch every bucket first, then collect every posterior grid with one
+    copy and extract the pairs on the host.  Echelon buckets run the
+    backward kernel's per-state posteriors (pstates = its matchN states)."""
+    t0 = time.perf_counter()
+    pending = []
+    for (name, _W), idxs in groups.items():
+        CT = pp._plan_channels(jobs[idxs[0]].sm)[1]
+        for chunk in _generic_chunks(wbands, idxs, CT):
+            plan, batch = pp.pack_window_bucket(
+                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                 for i in chunk], device)
+            pstates = (tuple(range(plan.match_state, ECH_GAPX))   # match1..match5
+                       if name == "echelon" else None)
+            p, _totals = pp.run_window(plan, wbands[chunk[0]].W, batch, pstates=pstates)
+            pending.append((chunk, p, pstates))
+    t1 = time.perf_counter()
+    grids = readpath._collect_packed([p for _c, p, _s in pending])
+    t2 = time.perf_counter()
+    for (chunk, _p, pstates), p in zip(pending, grids):
+        for bi, i in enumerate(chunk):
+            wb = wbands[i]
+            D = wb.n_diagonals
+            if pstates is not None:
+                pairs = _extract_multi_window(p[bi, :D].transpose(1, 0, 2), wb, threshold,
+                                              jobs[i].off_x, jobs[i].off_y)
+            else:
+                x, y, _valid = window_grids(wb)
+                pairs = _extract_pairs(p[bi, :D], x, y, threshold, jobs[i].off_x,
+                                       jobs[i].off_y)
+            out[i] = AlignedPairs(*pairs)
+    if timing is not None:
+        for key, dt in (("host_pack", t1 - t0), ("device_wait", t2 - t1),
+                        ("host_extract", time.perf_counter() - t2)):
+            timing[key] = timing.get(key, 0.0) + dt
+
+
 def job_window(band) -> WindowBand:
     """The constant-step window a job runs in: 64 lanes when its true band
     fits (most split jobs under the default expansion), else a multiple of
@@ -68,17 +158,18 @@ def job_window(band) -> WindowBand:
     return wb if wb.W == 64 else smooth_band(band, width_multiple=128)
 
 
-def _unsupported(job) -> NotImplementedError:
-    """The error for a job whose machine has no lane in the port yet."""
+def _unsupported(job) -> NotImplementedError | None:
+    """The error for a job whose machine has no lane in the port yet, None
+    for a job the port aligns."""
     sm = job.sm
     if getattr(sm, "symbol_codes", None) is not None:
         what = "the symbol (fiveState/realign) lane, ROADMAP queue 1 item 8"
-    elif getattr(sm, "hdp_pack", None) is not None:
-        what = "threeStateHdp alignment, ROADMAP queue 1 item 7"
+    elif getattr(sm, "hdp_pack", None) is not None or sm.spec.name == "threeStateHdp":
+        what = "threeStateHdp alignment, ROADMAP queue 1 item 9"
     else:
-        what = "the generic window machines, ROADMAP queue 1 item 7"
-    return NotImplementedError(f"{sm.spec.name} jobs need {what}; the port "
-                               "aligns threeState jobs only")
+        return None
+    return NotImplementedError(f"{sm.spec.name} jobs need {what}; the port aligns "
+                               "threeState, fourState, vanilla and echelon jobs")
 
 
 def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
@@ -87,13 +178,16 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
     SplitJob lists (so split/band prep runs lazily); jobs are staged as they
     arrive and dispatched in waves of ~WAVE_EVENTS events, so the card
     computes while the host prepares the remaining reads; one copy then
-    collects every wave.  Returns (jobs, pairs) with pairs aligned to jobs.
-    Jobs whose machine is not threeState raise NotImplementedError."""
+    collects every wave.  Jobs of the generic window machines are bucketed
+    by (machine, window width) and run after the threeState waves are
+    collected.  Returns (jobs, pairs) with pairs aligned to jobs.  Symbol
+    and threeStateHdp jobs raise NotImplementedError."""
     t0 = time.perf_counter()
     jobs: list[SplitJob] = []
     wbands = []
     staged_wave: list = []
     pending: list = []
+    generic: dict[tuple, list[int]] = {}
     ev_acc = 0
 
     def flush():
@@ -106,12 +200,16 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
 
     for jl in per_read_jobs:
         for j in jl:
-            if getattr(j.sm, "sm3_pack", None) is None:
-                raise _unsupported(j)
             i = len(jobs)
             jobs.append(j)
             wb = job_window(j.band)
             wbands.append(wb)
+            if getattr(j.sm, "sm3_pack", None) is None:
+                err = _unsupported(j)
+                if err is not None:
+                    raise err
+                generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
+                continue
             fj, plan = readpath.stage_fast_job(j, wb)
             staged_wave.append((i, fj, plan))
             ev_acc += len(fj.events)
@@ -130,6 +228,8 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
             out[ji] = pairs
     if overflow:
         _run_full_grid(jobs, wbands, overflow, threshold, device, out)
+    if generic:
+        _run_generic_buckets(jobs, wbands, generic, threshold, device, out, timing)
     return jobs, out
 
 

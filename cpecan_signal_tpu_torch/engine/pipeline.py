@@ -1,6 +1,8 @@
-"""threeState problem packing + the emissions -> forward -> backward pipeline
-and the E-step tallies on top of it (port of engine/pallas_pipeline.py:32-214,
-256-279, 426-447).
+"""Problem packing and the kernel pipelines (port of
+engine/pallas_pipeline.py:32-214, 256-391, 426-447): threeState problems
+(emissions -> forward -> backward, and the E-step tallies on top), and the
+generic window problems of any machine, whose emission and per-cell
+transition grids are built on the host (forward -> backward).
 
 Index conventions: per-x arrays are indexed by x (= x_idx + 1, so slot 0 is
 the x = -1 sentinel) shifted by +PADX so window cells left of the matrix stay
@@ -10,6 +12,8 @@ a diagonal).
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +25,7 @@ from ..models.pore_model import PoreModel
 from ..models.state_machines import LOG_TENTH, SHORT_GAP_X, make_signal_sm3
 from ..ops import fb_kernels as fk
 from .plan import EnginePlan, _build_plan, edge_table, plan_from
+from .window import prepare_window_inputs
 
 NEG_INF = fk.NEG_INF
 
@@ -268,3 +273,152 @@ def sm3_expectations(plan: EnginePlan, W: int, batch: SM3Problem):
         onehot[ei, e.frm * S + e.to] += 1.0
     trans = (stats[:, :n_e] @ to_device(onehot, stats.device)).sum(0).reshape(S, S)
     return trans, kmer_gap, stats[:, fk.LIK_LANE].sum()
+
+
+# ---------------------------------------------------------------------------
+# Generic window problems: vanilla, fourState, echelon
+# ---------------------------------------------------------------------------
+
+class WindowProblem(NamedTuple):
+    """A window-banded problem of any machine with host-built E (the JAX
+    ``WindowPallasProblem``): channels 0..C-1 of E are the emission classes,
+    channels C.. the per-cell transition rows (vanilla skip-bin terms,
+    echelon duration posteriors).  One problem, or a batch stacked on a
+    leading axis."""
+
+    E: torch.Tensor             # (Dp+2, C+T, W) f32; rows >= D are 0
+    diag_scalars: torch.Tensor  # (Dp+1, 1, 8) int32
+    d_last: torch.Tensor        # () int32
+    start: torch.Tensor         # (S,) f32
+    end: torch.Tensor           # (S,) f32
+    tp_scalar: torch.Tensor     # (max(n, 1),) f32
+    x0: torch.Tensor            # (Dp+1,) int32 grid x of window lane 0 per
+                                # diagonal (the per-x key of stage-4 tallies)
+
+
+def _plan_channels(sm) -> tuple[EnginePlan, int]:
+    """The machine's plan and C + T, its emission classes and per-cell
+    transition rows: the channels of E."""
+    plan, _tp, cells = _build_plan(sm, "exact")
+    return plan, plan.n_eclasses + len(cells)
+
+
+def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
+                         ragged_left: bool, ragged_right: bool):
+    """Pack one problem for the generic kernels (make_window_pallas_problem,
+    engine/pallas_pipeline.py:314-360) into ``E_out``, a zeroed (Dp+2, C+T,
+    W) f32 array, and return (plan, the other WindowProblem fields as numpy).
+    Emissions and transition rows saturate at NEG_INF, so the f32 kernels
+    stay NaN-free (vanilla's all-zero emission class comes with log(0)
+    transition rows)."""
+    plan, winp = prepare_window_inputs(sm, wband, ragged_left=ragged_left,
+                                       ragged_right=ragged_right)
+    D = wband.n_diagonals
+    C = winp.E.shape[1]
+    assert C == plan.n_eclasses and E_out.shape[1] == C + winp.TP.shape[1]
+    np.maximum(winp.E[:D], NEG_INF, out=E_out[:D, :C], casting="unsafe")
+    np.maximum(winp.TP[:D], NEG_INF, out=E_out[:D, C:], casting="unsafe")
+
+    ds, w0 = _window_diag_scalars(wband, Dp)
+    # DS_XS (the x-window step) for the stage-4 window tallies
+    x_of_j0 = (np.arange(Dp) + w0) // 2
+    ds[1:Dp, 0, fk.DS_XS] = np.clip(x_of_j0[1:] - x_of_j0[:-1], 0, 1)
+    ds[Dp] = ds[Dp - 1]
+    x0 = np.empty(Dp + 1, dtype=np.int32)
+    x0[:Dp] = x_of_j0
+    x0[Dp] = x_of_j0[Dp - 1]
+    tp_scalar = winp.tp_scalar if winp.tp_scalar.size else np.zeros(1)
+    return plan, (ds, np.int32(D - 1), _san(winp.start), _san(winp.end),
+                  _san(tp_scalar), x0)
+
+
+def make_window_problem(sm, wband: WindowBand, *, device: torch.device,
+                        ragged_left=True, ragged_right=True,
+                        pad_d: int | None = None) -> tuple[EnginePlan, WindowProblem]:
+    """One generic window problem on ``device`` (make_window_pallas_problem).
+    Dp is the diagonal count padded to ``pad_d``; the kernels need no block
+    rounding, so E has Dp + 2 rows where the JAX problem has Dp + KD."""
+    _plan, CT = _plan_channels(sm)
+    Dp = max(wband.n_diagonals, pad_d or wband.n_diagonals)
+    E = np.zeros((Dp + 2, CT, wband.W), dtype=np.float32)
+    plan, rest = _fill_window_problem(sm, wband, Dp, E, ragged_left=ragged_left,
+                                      ragged_right=ragged_right)
+    return plan, WindowProblem(*(torch.as_tensor(a, device=device) for a in (E, *rest)))
+
+
+def pack_window_bucket(items, device: torch.device) -> tuple[EnginePlan, WindowProblem]:
+    """Stack the problems of ``items`` [(sm, wband, ragged_left,
+    ragged_right)], one machine and one window width, padded to the longest,
+    into one batch on ``device``.  On a card the batch is packed straight
+    into pinned host memory and uploaded without blocking, so the card works
+    on earlier buckets meanwhile.  The problems fill in parallel threads:
+    numpy releases the GIL in the grids' array arithmetic, which is most of
+    the packing time."""
+    sm0, wb0 = items[0][:2]
+    plan, CT = _plan_channels(sm0)
+    Dp = max(wb.n_diagonals for _sm, wb, *_r in items)
+    pinned = device.type == "cuda"
+    E = torch.zeros((len(items), Dp + 2, CT, wb0.W), dtype=torch.float32,
+                    pin_memory=pinned)
+    E_np = E.numpy()
+
+    def fill(b):
+        sm, wb, rl, rr = items[b]
+        return _fill_window_problem(sm, wb, Dp, E_np[b], ragged_left=rl, ragged_right=rr)
+
+    rows = []
+    with ThreadPoolExecutor(max_workers=min(len(items), os.cpu_count() or 1)) as pool:
+        for (sm, *_r), (iplan, rest) in zip(items, pool.map(fill, range(len(items)))):
+            # buckets key on the machine's name; a plan that varied under one
+            # name would run with the wrong edge table
+            assert iplan == plan, sm.spec.name
+            rows.append(rest)
+    fields = [E] + [torch.from_numpy(np.stack(col)) for col in zip(*rows)]
+    if pinned:
+        fields = [t if t.is_pinned() else t.pin_memory() for t in fields]
+    return plan, WindowProblem(*(t.to(device, non_blocking=True) for t in fields))
+
+
+def stack_window_problems(probs: list[WindowProblem]) -> WindowProblem:
+    """Stack equally padded window problems into one batch."""
+    return WindowProblem(*(torch.stack(fields, dim=0) for fields in zip(*probs)))
+
+
+def window_problem_from_numpy(plan, prob, device: torch.device, Dp: int | None = None
+                              ) -> tuple[EnginePlan, WindowProblem]:
+    """Carry a JAX ``WindowPallasProblem`` batch (or an object with its
+    fields as numpy arrays) and its ``EnginePlan`` over to the port: rows
+    past Dp+2 of E and Dp+1 of the diagonal scalars and x0 dropped (Dp
+    defaults to the scalar rows - 1)."""
+    ds = np.asarray(prob.diag_scalars)
+    if Dp is None:
+        Dp = ds.shape[-3] - 1
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return plan_from(plan), WindowProblem(
+        E=t(np.asarray(prob.E)[..., :Dp + 2, :, :], torch.float32),
+        diag_scalars=t(ds[..., :Dp + 1, :1, :], torch.int32),
+        d_last=t(prob.d_last, torch.int32),
+        start=t(prob.start, torch.float32), end=t(prob.end, torch.float32),
+        tp_scalar=t(prob.tp_scalar, torch.float32),
+        x0=t(np.asarray(prob.x0)[..., :Dp + 1], torch.int32))
+
+
+def run_window(plan: EnginePlan, W: int, batch: WindowProblem, stages: int = 3,
+               pstates: tuple[int, ...] | None = None):
+    """Forward -> fused backward on a stacked WindowProblem batch, on the
+    batch's device (run_window_pallas at stage 3).  Returns (p (B, Dp, W)
+    match posteriors, or (B, Dp, P, W) with ``pstates``, totals (B, Dp)).
+    The vanilla E-step's stage 4 arrives with ROADMAP queue 1 item 9."""
+    if stages != 3:
+        raise ValueError(f"stages={stages}: the generic window path runs stage 3 "
+                         "(the vanilla E-step is ROADMAP queue 1 item 9)")
+    if batch.E.shape[-1] != W:
+        raise ValueError(f"E has {batch.E.shape[-1]} lanes, not W = {W}")
+    edges = to_device(edge_table(plan), batch.E.device)
+    F = fk.forward_sm3(edges, batch.E, batch.diag_scalars, batch.d_last, batch.start,
+                       batch.tp_scalar)
+    return fk.backward_sm3(edges, plan.match_state, batch.E, F, batch.diag_scalars,
+                           batch.d_last, batch.end, batch.tp_scalar, pstates=pstates)

@@ -32,8 +32,9 @@ _SIGNATURES = {
     "fb_error_string": ([_I], ctypes.c_char_p),
     "fb_emissions_sm3": ([_P] * 5 + [_I] * 7 + [_I, _P], _I),
     "fb_forward": ([_P] * 7 + [_I] * 9 + [_I, _P], _I),
+    # ..., ds_rows, the state mask of the posterior channels
     "fb_backward_sm3": ([_P] * 9 + [_I] * 10 + [_I, _P], _I),
-    # + exits, gacc, stats; + G and the MAX_G group bitmasks
+    # + exits, gacc, stats; ..., ds_rows, match state, G, the MAX_G group bitmasks
     "fb_backward_sm3_em": ([_P] * 12 + [_I] * 15 + [_I, _P], _I),
 }
 

@@ -14,6 +14,7 @@ Inputs keep the JAX package's layouts (ops/pallas_fb.py) at nh = 1:
 (B, S), ``tp_scalar`` (B, n) f32.  Outputs drop the TPU halo and padding:
 E (B, Dp+2, 3, W), F (B, Dp, S, W), p (B, Dp, W), totals (B, Dp), and at
 stage 4 (the EM tallies) exits (B, Dp, G), gacc (B, G, W), stats (B, 128).
+With ``pstates`` (the echelon posteriors, stage 3) p is (B, Dp, P, W).
 
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do not
 count), so a run can show which kernels its main path went through.
@@ -33,12 +34,14 @@ _LOG_UNDERFLOW = 7.5
 N_XPARAMS = 13   # rows of the per-x parameter pack (see emissions_sm3)
 DS_FL, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS = range(8)
 MAX_STATES = 8   # csrc/fb_sm3.cu MAX_S
-MAX_EDGES = 32   # csrc/fb_sm3.cu MAX_EDGES
+MAX_EDGES = 64   # csrc/fb_sm3.cu MAX_EDGES; edge e tallies in stats lane e < LIK_LANE
 MAX_GROUPS = 4   # csrc/fb_sm3.cu MAX_G: windowed tally groups at stage 4
+MASK_BITS = 32   # a stage-4 group is a 32-bit edge mask: its edges are < 32
 STATS_LANES = 128
 LIK_LANE = 64    # stats lane of the likelihood (lanes < 64: per-edge tallies)
 
-LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0, "backward_em": 0}
+LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0, "backward_em": 0,
+            "backward_pstates": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +193,29 @@ def group_masks(wgroups, n_edges: int) -> list[int]:
         for e in members:
             if not 0 <= e < n_edges:
                 raise ValueError(f"window group edge {e} outside [0, {n_edges})")
+            if e >= MASK_BITS:
+                raise ValueError(f"window group edge {e}: the stage-4 group masks "
+                                 f"are {MASK_BITS}-bit, so group edges must be < {MASK_BITS}")
             m |= 1 << e
         masks.append(m - (1 << 32) if m >= 1 << 31 else m)   # as a C int
     return masks + [0] * (MAX_GROUPS - len(masks))
 
 
+def pstate_mask(pstates, S: int, stages: int) -> int:
+    """``pstates`` (strictly increasing state indices, the echelon matchN
+    states) -> the state bitmask the stage-3 kernel takes: channel c of p
+    is the c-th set bit."""
+    if stages != 3:
+        raise ValueError("pstates is the echelon multi-state posterior mode (stage 3)")
+    states = list(pstates)
+    if not states or any(not 0 <= s < S for s in states) or \
+            any(a >= b for a, b in zip(states, states[1:])):
+        raise ValueError(f"pstates {states}: strictly increasing states in [0, {S})")
+    return sum(1 << s for s in states)
+
+
 def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                     tp_scalar, stages: int = 3, wgroups=None):
+                     tp_scalar, stages: int = 3, wgroups=None, pstates=None):
     """Plain version of ``backward_sm3``.  At stage 4 the EM tallies sum in
     the JAX kernel's order: per diagonal the sum over lanes, then the sum
     over diagonals from the last to the first."""
@@ -208,7 +227,12 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
     mid_rows = [r for r in rows if r[0] == SRC_MIDDLE]
     lane = torch.arange(W, device=dev)
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=dev)
-    P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
+    if pstates is not None:
+        pstate_mask(pstates, S, stages)
+        P = torch.empty((B, Dp, len(pstates), W), dtype=torch.float32, device=dev)
+    else:
+        P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
+    Pc = P if pstates is not None else P[:, :, None]   # (B, Dp, P, W) view
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
     if stages == 4:
         group_masks(wgroups, len(rows))          # the kernel's limits
@@ -253,10 +277,12 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         total = ladd(t1, t2) if 1 <= d < Dp - 1 else t1
         T[:, d] = total
 
-        m = match_state
-        p = torch.exp(torch.clamp_max(Fd[:, m] + cur[:, m] - total[:, None], 0.0))
+        # one channel per listed state (the match state alone by default),
+        # masked to x > 0 and y > 0
         ok = valid & (xmy > -d) & (xmy < d)
-        P[:, d] = torch.where(ok, p, 0.0)
+        for c, m in enumerate((match_state,) if pstates is None else pstates):
+            p = torch.exp(torch.clamp_max(Fd[:, m] + cur[:, m] - total[:, None], 0.0))
+            Pc[:, d, c] = torch.where(ok, p, 0.0)
         if stages == 4:
             _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, E[:, d],
                         tp_scalar, d_last, exits, gacc, stats)
@@ -410,7 +436,7 @@ def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tenso
 
 
 def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                 tp_scalar, stages: int = 3, wgroups=None):
+                 tp_scalar, stages: int = 3, wgroups=None, pstates=None):
     """Fused backward pass.  Stage 3: the reverse recursion from b[d+1] /
     b[d+2] with E[d+1] / E[d+2] (E shifted with a 0.0 fill), the end vector
     injected at d_last, the per-diagonal total lse(F*b) ladd the
@@ -427,12 +453,18 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     tally whose lane W-1 leaves as exits[d, g] where DS_XS[d] == 1 (x =
     x0[d] + W - 1) and whose rest comes out as gacc[g] (lane j: x = x0[0] +
     j).  Returns (p, totals, exits (B, Dp, G), gacc (B, G, W), stats
-    (B, 128))."""
+    (B, 128)).
+
+    ``pstates`` (stage 3 only; strictly increasing states) is the echelon
+    mode of ops/pallas_fb.py:537-547: p becomes (B, Dp, P, W), channel c the
+    posterior exp(min(F + b - total, 0)) of state pstates[c], masked as the
+    match posterior (diagonalCalculationMultiPosteriorMatchProbs,
+    pairwiseAligner.c:797-839)."""
     if stages not in (3, 4):
         raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     if not _on_cuda(edges, E, F, diag_scalars, d_last, end, tp_scalar):
         return backward_sm3_ref(edges, match_state, E, F, diag_scalars,
-                                d_last, end, tp_scalar, stages, wgroups)
+                                d_last, end, tp_scalar, stages, wgroups, pstates)
     B, De, C, W = E.shape
     S = end.shape[1]
     Dp = F.shape[1]
@@ -449,14 +481,19 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     if not 0 <= match_state < S:
         raise ValueError(f"match_state {match_state} outside [0, {S})")
     dev = E.device
-    P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
+    if pstates is None:
+        P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
+        pmask = 1 << match_state
+    else:
+        pmask = pstate_mask(pstates, S, stages)
+        P = torch.empty((B, Dp, len(pstates), W), dtype=torch.float32, device=dev)
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
     args = (_p(E), _p(F), _p(diag_scalars), _p(d_last), _p(end), _p(tp_scalar),
             _p(edges), _p(P), _p(T))
-    dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], edges.shape[0], Dp + 1,
-            match_state)
+    dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], edges.shape[0], Dp + 1)
     if stages == 3:
-        _launch("backward", "fb_backward_sm3", dev, *args, *dims)
+        _launch("backward" if pstates is None else "backward_pstates",
+                "fb_backward_sm3", dev, *args, *dims, pmask)
         return P, T
     masks = group_masks(wgroups, edges.shape[0])
     G = len(wgroups)
@@ -464,5 +501,5 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     gacc = torch.empty((B, G, W), dtype=torch.float32, device=dev)
     stats = torch.empty((B, STATS_LANES), dtype=torch.float32, device=dev)
     _launch("backward_em", "fb_backward_sm3_em", dev, *args, _p(exits), _p(gacc),
-            _p(stats), *dims, G, *masks)
+            _p(stats), *dims, match_state, G, *masks)
     return P, T, exits, gacc, stats

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
-PyTorch version on the same CUDA tensors, and the device-batched slice on
-the card against the CPU plain path.
+PyTorch version on the same CUDA tensors (at the threeState, vanilla and
+echelon plans), and the device-batched slice on the card against the CPU
+plain path (threeState and vanilla).
 
 Every test needs a card and skips without one.  The file imports no jax, so
 on a machine with a card and without jax it runs as
@@ -21,7 +22,9 @@ import torch
 from cpecan_signal_tpu_torch.core.band import band_construct
 from cpecan_signal_tpu_torch.core.window import smooth_band
 from cpecan_signal_tpu_torch.models.params import AlignmentParams
-from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3
+from cpecan_signal_tpu_torch.models.state_machines import (make_signal_echelon,
+                                                            make_signal_sm3,
+                                                            make_signal_vanilla)
 from cpecan_signal_tpu_torch import synthetic as syn
 from cpecan_signal_tpu_torch.em import sm3_em
 from cpecan_signal_tpu_torch.engine import pipeline as pp
@@ -220,6 +223,82 @@ def test_cuda_slice_matches_cpu(cuda_device, tmp_path):
     rng = np.random.default_rng(7)
     pore = _pore(tmp_path, rng)
     jobs = [SplitJob(make_signal_sm3(pore, t, e), band, 0, 0, bool(i % 2), i < 4)
+            for i, (t, e, band, _wb) in enumerate(_cases(pore, rng, 8, 64, expansion=6))]
+    before = fk.LAUNCHES["backward"]
+    got = batch_align_jobs(jobs, AlignmentParams().threshold, device=cuda_device)
+    assert fk.LAUNCHES["backward"] > before
+    want = batch_align_jobs(jobs, AlignmentParams().threshold, device=torch.device("cpu"))
+    for g, w in zip(got, want):
+        dg = {(x, y): q for q, x, y in g.as_tuples()}
+        dw = {(x, y): q for q, x, y in w.as_tuples()}
+        common = set(dg) & set(dw)
+        assert len(common) >= max(len(dg), len(dw), 1) - 1
+        assert all(abs(dg[k] - dw[k]) < 1.2e-3 * 1e7 for k in common)
+
+
+GENERIC = {"vanilla": (make_signal_vanilla, None),
+           "echelon": (make_signal_echelon, (1, 2, 3, 4, 5))}
+
+
+@pytest.mark.parametrize("name", list(GENERIC))
+@pytest.mark.parametrize("W", [128, 1024])
+def test_cuda_generic_kernels_match_plain(name, W, cuda_device, tmp_path):
+    """The forward and stage-3 backward kernels at the vanilla plan (3
+    states, 7 edges, 8 channels) and the echelon plan (7 states, 46 edges,
+    17 channels, backward with the per-state posteriors) against their plain
+    versions: 4 anchored reads at 128 lanes, 2 unanchored reads of 960-1000
+    bases whose band needs 1024 lanes (echelon's carry rows then take 86 KB
+    of shared memory)."""
+    make, pstates = GENERIC[name]
+    rng = np.random.default_rng(W + len(name))
+    pore = _pore(tmp_path, rng)
+    if W == 128:
+        cases = [(t, e, wb) for t, e, _band, wb in _cases(pore, rng, 4, W)]
+    else:
+        cases = []
+        while len(cases) < 2:
+            target = "".join(rng.choice(list("ACGT"), int(rng.integers(960, 1000))))
+            events, _path = syn.simulate_events(pore, target, rng)
+            wb = smooth_band(band_construct(np.zeros((0, 2), dtype=np.int64),
+                                            len(target) - 5, len(events), 50),
+                             width_multiple=128)
+            if wb.W == W:
+                cases.append((target, events, wb))
+    Dp = max(wb.n_diagonals for *_x, wb in cases) + 3
+    plan, probs = None, []
+    for i, (target, events, wb) in enumerate(cases):
+        plan, prob = pp.make_window_problem(make(pore, target, events, "template"), wb,
+                                            device=cuda_device, ragged_left=bool(i % 2),
+                                            ragged_right=i < 2, pad_d=Dp)
+        probs.append(prob)
+    b = pp.stack_window_problems(probs)
+    edges = pp.to_device(edge_table(plan), cuda_device)
+    fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    before = dict(fk.LAUNCHES)
+    F = fk.forward_sm3(*fargs)
+    bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    p, tot = fk.backward_sm3(*bargs, pstates=pstates)
+    torch.cuda.synchronize()
+    mode = "backward" if pstates is None else "backward_pstates"
+    assert fk.LAUNCHES["forward"] == before["forward"] + 1
+    assert fk.LAUNCHES[mode] == before[mode] + 1
+    F_ref = fk.forward_sm3_ref(*fargs)
+    p_ref, tot_ref = fk.backward_sm3_ref(*bargs, pstates=pstates)
+    torch.testing.assert_close(F, F_ref, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(p, p_ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tot, tot_ref, rtol=1e-5, atol=1e-3)
+    assert p.shape == ((len(cases), Dp, W) if pstates is None
+                       else (len(cases), Dp, len(pstates), W))
+    assert float(p.sum()) > 0.25 * float(b.d_last.sum())
+
+
+def test_cuda_generic_slice_matches_cpu(cuda_device, tmp_path):
+    """batch_align_jobs of vanilla jobs (the CLIs' default machine) on the
+    card against the CPU plain path, ragged ends and strands mixed."""
+    rng = np.random.default_rng(11)
+    pore = _pore(tmp_path, rng)
+    jobs = [SplitJob(make_signal_vanilla(pore, t, e, "template" if i % 2 else "complement"),
+                     band, 0, 0, bool(i % 2), i < 4)
             for i, (t, e, band, _wb) in enumerate(_cases(pore, rng, 8, 64, expansion=6))]
     before = fk.LAUNCHES["backward"]
     got = batch_align_jobs(jobs, AlignmentParams().threshold, device=cuda_device)

@@ -28,6 +28,7 @@ from cpecan_signal_tpu_torch.engine import batch_align as tba
 from cpecan_signal_tpu_torch.engine import readpath as trp
 from cpecan_signal_tpu_torch.engine.align import SplitJob
 from test_readpath_random import _pairs_match, _threestate_cases
+from test_torch_generic_cli import assert_columns_agree
 
 CPU = torch.device("cpu")
 
@@ -177,7 +178,7 @@ def test_signal_align_cli_matches_jax_cli(tmp_path, monkeypatch):
     """The port's signal_align -s on 2 synthetic npReads writes TSV rows for
     both reads and strands; the rows agree with the JAX CLI's (f64 host
     engine) per read and strand to <= 2 pairs (one per split job) and
-    1.2e-3 posterior."""
+    1.2e-3 posterior, and in every other column on the rows both write."""
     from cpecan_signal_tpu.cli import signal_align as jsa
 
     model, ref, reads = _read_set(tmp_path, 2)
@@ -195,6 +196,7 @@ def test_signal_align_cli_matches_jax_cli(tmp_path, monkeypatch):
         common = set(got) & set(want)
         assert len(common) >= max(len(got), len(want)) - 2, key
         assert max(abs(got[k] - want[k]) for k in common) < 1.2e-3
+    assert_columns_agree(rows, jrows)
 
 
 def test_failed_strand_keeps_later_reads_attributed(tmp_path, monkeypatch):

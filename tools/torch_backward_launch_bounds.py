@@ -1,7 +1,8 @@
-"""Time the PyTorch port's backward kernel under three launch bounds, on
-one CUDA card.
+"""Time the PyTorch port's backward kernel under three launch bounds, or
+against an earlier version of its source, on one CUDA card.
 
     python3 tools/torch_backward_launch_bounds.py [--rounds 5] [--reps 10]
+        [--parent DIR] [--builds as_built,parent]
 
 csrc/fb_sm3.cu instantiates backward_kernel under __launch_bounds__
 (MAX_THREADS): stage 4 at 1024 (64 registers a thread, so that the one
@@ -19,6 +20,12 @@ spread (max - min) / median over its times, and each build's median over
 the unbounded one.  Every build's outputs must agree with the as-built
 one's (p, totals, exits and gacc exactly, stats to the stage-4 tolerance
 of chip_smoke.py), else it exits nonzero.
+
+``--parent DIR`` adds a build "parent" of DIR's
+cpecan_signal_tpu_torch/csrc/fb_sm3.cu (an unpacked earlier commit), so the
+two versions are timed in one process on one card; a parent whose stage-3
+entry point takes the match state where this one takes the posterior
+state mask gets the state.  ``--builds`` names the builds to time.
 """
 
 from __future__ import annotations
@@ -37,11 +44,30 @@ sys.path.insert(0, str(ROOT))
 BOUND = "__global__ void __launch_bounds__(MAX_THREADS)"
 BUILDS = ("as_built", "bound_1024", "unbounded")
 W, DP, B = 128, 4096, 64
+# the stage-3 entry point's last int argument before the device: the
+# posterior state mask here, the match state before the mask existed
+MASK_ARG = 18
 
 
-def build_variants(tmp: Path) -> dict:
-    """{build: lib} for BUILDS, compiled side by side with the library's
-    own flags."""
+class MatchStateLib:
+    """A library whose fb_backward_sm3 takes the match state: the wrapper's
+    one-state mask is turned into that state."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def fb_backward_sm3(self, *args):
+        args = list(args)
+        args[MASK_ARG] = args[MASK_ARG].bit_length() - 1
+        return self.lib.fb_backward_sm3(*args)
+
+
+def build_variants(tmp: Path, names, parent: Path | None = None) -> dict:
+    """{build: lib} for ``names`` (of BUILDS and "parent"), compiled side by
+    side with the library's own flags."""
     import chip_smoke
     from cpecan_signal_tpu_torch.ops import _build
 
@@ -55,6 +81,9 @@ def build_variants(tmp: Path) -> dict:
     texts = {"as_built": src,
              "bound_1024": src.replace(BOUND, "__global__ void __launch_bounds__(1024)"),
              "unbounded": src.replace(BOUND, "__global__ void")}
+    if parent is not None:
+        texts["parent"] = (parent / "cpecan_signal_tpu_torch/csrc/fb_sm3.cu").read_text()
+    texts = {name: texts[name] for name in names}
     for name, text in texts.items():
         cu, so = tmp / f"{name}.cu", tmp / f"lib{name}.so"
         cu.write_text(text)
@@ -70,6 +99,8 @@ def build_variants(tmp: Path) -> dict:
             if "backward" in line:
                 print(f"ptxas {name}: {line}", flush=True)
         libs[name] = _build.bind(so)
+    if "parent" in libs and "int pmask" not in texts["parent"]:
+        libs["parent"] = MatchStateLib(libs["parent"])
     return libs
 
 
@@ -77,7 +108,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of an unpacked earlier commit to time against")
+    ap.add_argument("--builds", default=None,
+                    help="comma-separated builds to time (default: the three "
+                    "bounds, and parent with --parent)")
     args = ap.parse_args()
+    builds = tuple(args.builds.split(",")) if args.builds else (
+        BUILDS + (("parent",) if args.parent else ()))
+    if builds[0] != "as_built" or ("parent" in builds) != (args.parent is not None):
+        ap.error("--builds starts with as_built, and names parent with --parent only")
 
     import numpy as np
     import torch
@@ -97,7 +137,7 @@ def main() -> int:
     device = torch.device("cuda")
     rng = np.random.default_rng(chip_smoke.SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(Path(tmp))
+        libs = build_variants(Path(tmp), builds, args.parent)
         pore = syn.write_pore_model(str(Path(tmp) / "synthetic.model"), rng)
         plan, b = chip_smoke.kernel_problems(pore, W, DP, B, rng, device)
     edges = pp.to_device(edge_table(plan), device)
@@ -113,11 +153,11 @@ def main() -> int:
         _build.load_library = lambda: libs[name]
 
     outs = {}
-    for name in BUILDS:
+    for name in builds:
         use(name)
         outs[name] = {st: run() for st, run in runs.items()}
     torch.cuda.synchronize()
-    for name in BUILDS[1:]:
+    for name in builds[1:]:
         for st in runs:
             a, u = outs["as_built"][st], outs[name][st]
             same = all(torch.equal(x, y) for x, y in zip(a[:4], u[:4]))
@@ -128,9 +168,9 @@ def main() -> int:
                 raise AssertionError(f"stage {st}: the {name} build's outputs differ")
     del outs
 
-    times = {st: {name: [] for name in BUILDS} for st in runs}
+    times = {st: {name: [] for name in builds} for st in runs}
     for r in range(args.rounds):
-        for name in BUILDS + BUILDS[::-1]:
+        for name in builds + builds[::-1]:
             use(name)
             for st, run in runs.items():
                 times[st][name].append(chip_smoke.cuda_ms(run, args.reps))
@@ -144,8 +184,10 @@ def main() -> int:
         for name, ts in v.items():
             result[f"stage{st}_{name}_ms"] = med[name]
             result[f"stage{st}_{name}_spread"] = (max(ts) - min(ts)) / med[name]
-        for name in BUILDS[:2]:
-            result[f"stage{st}_{name}_over_unbounded"] = med[name] / med["unbounded"]
+        base = "unbounded" if "unbounded" in med else builds[-1]
+        for name in builds:
+            if name != base:
+                result[f"stage{st}_{name}_over_{base}"] = med[name] / med[base]
     print(json.dumps(result))
     return 0
 

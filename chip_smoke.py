@@ -19,6 +19,18 @@ plans, then drives the port's paths on 50 synthetic two-strand reads:
     with its per-state posteriors), each checked against the CPU plain path;
     vanilla timed.
 
+and the nucleotide paths on a synthetic 1 Mb genome pair (fiveState: the
+backward kernel's per-edge-group posterior channels, pgroups, checked
+against the plain versions first):
+
+  * realignment: cli/realign over 10 guide CIGARs of 100 kb, 3 of them on
+    the second genome's reverse strand, scored against the true alignment;
+    two 1 kb records checked against the CPU plain path;
+  * nucleotide EM: cli/em on the 1 Mb chunk, 3 iterations (forward, stage-4
+    backward with pgroups), the likelihood required not to fall; one E-step
+    over the small records checked against the CPU, and two card runs of
+    one E-step over the chunk required to agree bit for bit.
+
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after.  Each phase prints one line; any failure raises and the
 script exits nonzero.  Without a usable CUDA device it exits nonzero before
@@ -38,13 +50,15 @@ import sys
 import tempfile
 import time
 
-KERNELS = ("emissions", "forward", "backward", "backward_em", "backward_pstates")
+KERNELS = ("emissions", "forward", "backward", "backward_em", "backward_pstates",
+           "backward_pgroups")
 REPLACES = {
     "emissions": "cpecan_signal_tpu/ops/pallas_fb.py:162",
     "forward": "cpecan_signal_tpu/ops/pallas_fb.py:343",
     "backward": "cpecan_signal_tpu/ops/pallas_fb.py:627",
     "backward_em": "cpecan_signal_tpu/ops/pallas_fb.py:627 (stages=4, wgroups)",
     "backward_pstates": "cpecan_signal_tpu/ops/pallas_fb.py:627 (stages=3, pstates)",
+    "backward_pgroups": "cpecan_signal_tpu/ops/pallas_fb.py:627 (stages=4, pgroups)",
 }
 # the generic window machines through the CLI: signal_align flags, the
 # backward mode each launches, and how many of the smallest reads its
@@ -81,6 +95,32 @@ GENERIC_SHAPES = {"vanilla": ((128, 1024, True), (128, 4096, False), (256, 4096,
                   "echelon": ((128, 1024, True), (128, 4096, False))}
 # anchors every 80 events with expansion 50 give 256-lane windows
 WIDE_BAND = {256: (80, 50)}
+# the nucleotide workloads: a random genome X and its descendant Y (5 %
+# substitutions, 0.5 % insertions and 0.5 % deletions, run lengths
+# geometric with mean 2); NUC_RECORDS guide CIGARs of the true alignment,
+# 100 kb of X each, the 1 Mb chunk cli/em takes as one job, those in
+# NUC_REVERSE on Y's reverse strand (Y holds their segment reverse-
+# complemented); NUC_SMALL (X start, length, the record it lies in) for the
+# card-against-CPU checks
+NUC_BASES, NUC_RECORDS, NUC_REVERSE = 1_000_000, 10, (2, 5, 8)
+NUC_RATES = (0.05, 0.005, 0.005)
+NUC_SMALL = ((20_000, 1000, 0), (520_000, 1000, 5))
+QUALITY_MIN = 0.9   # precision and recall of the realigned pairs against the truth
+# cli/em starts from Jukes-Cantor emissions at this divergence (its
+# --setJukesCantorStartingEmissions; match-emission trace 0.7527): from
+# random emissions three iterations leave the trace near 0.25 (0.22, 0.24,
+# 0.27, 0.32, 0.57 over five iterations on a 4 kb CPU rehearsal)
+NUC_JC_START = 0.3
+# fiveState kernel checks against the plain versions, B = 64: (W, Dp, guide
+# diagonal expansion) on segments of the genome pair of (Dp - 96) / 2 bases;
+# the kernels line's backward_pgroups entry takes the W = 128 numbers.  The
+# W = 64 check runs at Dp = 1024 and the small records are 1 kb, so that the
+# plain versions, which set the pace of these checks, keep the run within
+# its time limit on a slow host.  FIVE_WIDE (W, Dp, expansion, B): narrow
+# bands in 1024-lane windows, the edge-group backward's 1024-thread
+# instance (past PGROUPS_THREADS, csrc/fb_sm3.cu)
+FIVE_SHAPES = ((64, 1024, 20), (128, 4096, 60))
+FIVE_WIDE = (WIDE_W, 512, 20, 2)
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (every input read once, every output written once) at the H100
@@ -91,7 +131,7 @@ LADD_OPS = 14   # the reference logAdd, counted in csrc/fb_sm3.cu
 
 
 def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
-                 wgroups=()) -> int:
+                 wgroups=(), pgroups=()) -> int:
     """f32 operations per window cell of one launch, counted from
     csrc/fb_sm3.cu and the launch's edge table (an exp or a log is 1).
     An edge adds each of its terms (emission class, per-cell channels,
@@ -104,7 +144,9 @@ def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
     min, exp) and 7 a cell (the logsumexps' log and add, the 3 mask tests).
     stage 4 adds per edge 6 + terms (source + b, terms, - total, min, exp,
     mask, tally add), per window group its member edges + 2 (tally add,
-    shift) and the likelihood's add."""
+    shift) and the likelihood's add; with edge groups (backward_pgroups) the
+    channel sums' adds, one per group member, replace the match posterior's
+    4."""
     rows = edges.tolist()
     terms = [1 + sum(1 for v in r[4:] if v >= 0) for r in rows]
     edge_ops = sum(t + LADD_OPS for t in terms)
@@ -114,8 +156,10 @@ def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
         return edge_ops
     middle = sum(t + LADD_OPS for t, r in zip(terms, rows) if r[0] == 1)
     ops = edge_ops + middle + 11 * n_states + 4 * n_post + 7
-    if kernel == "backward_em":
+    if kernel in ("backward_em", "backward_pgroups"):
         ops += sum(6 + t for t in terms) + sum(len(g) + 2 for g in wgroups) + 1
+    if kernel == "backward_pgroups":
+        ops += sum(len(g) for g in pgroups) - 4 * n_post
     return ops
 
 
@@ -778,6 +822,371 @@ def phase_vanilla_timing(paths, ref_seq, model, device, card: str) -> None:
           + f"; card {card}", flush=True)
 
 
+def nucleotide_set(tmp) -> dict:
+    """The nucleotide workloads' inputs, from a generator of their own
+    (default_rng([SEED, 2])): the genome pair (FASTA), the NUC_RECORDS guide
+    records (a CIGAR file and the same lines for stdin), the small records,
+    and per record the true aligned pairs in its own coordinates (x - x1,
+    y - the record's first y)."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.core.amap import pairs_to_cigar_ops
+    from cpecan_signal_tpu_torch.io.cigar import CigarRecord
+    from cpecan_signal_tpu_torch.io.fasta import reverse_complement, write_fasta
+
+    rng = np.random.default_rng([SEED, 2])
+    x = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, NUC_BASES)].tobytes().decode()
+    y, truth = syn.evolve_with_truth(x, rng, *NUC_RATES)
+    step = NUC_BASES // NUC_RECORDS
+    spans = []
+    for k in range(NUC_RECORDS):
+        sel = truth[(truth[:, 0] >= k * step) & (truth[:, 0] < (k + 1) * step)]
+        spans.append((int(sel[0, 1]), int(sel[-1, 1]) + 1))
+    # Y as stored: the reverse records' segments reverse-complemented
+    pieces, pos = [], 0
+    for k in NUC_REVERSE:
+        a, b = spans[k]
+        pieces += [y[pos:a], reverse_complement(y[a:b])]
+        pos = b
+    y_fa = "".join(pieces + [y[pos:]])
+
+    def record(x1, x2, k):
+        sel = truth[(truth[:, 0] >= x1) & (truth[:, 0] < x2)]
+        c, d = int(sel[0, 1]), int(sel[-1, 1]) + 1
+        local = sel - [x1, c]
+        ops = pairs_to_cigar_ops(np.concatenate([np.ones((len(local), 1), dtype=np.int64),
+                                                 local], axis=1), x2 - x1, d - c)
+        if k in NUC_REVERSE:   # y[c:d] is the reverse complement of y_fa[a+b-d:a+b-c]
+            a, b = spans[k]
+            rec = CigarRecord("X", x1, x2, True, "Y", a + b - c, a + b - d, False, 0.0, ops)
+        else:
+            rec = CigarRecord("X", x1, x2, True, "Y", c, d, True, 0.0, ops)
+        return rec, local
+
+    big = [record(k * step, (k + 1) * step, k) for k in range(NUC_RECORDS)]
+    small = [record(x1, x1 + n, k)[0] for x1, n, k in NUC_SMALL]
+    fasta = os.path.join(tmp, "pair.fa")
+    write_fasta(fasta, [("X", x), ("Y", y_fa)])
+    text = "".join(r.to_line() + "\n" for r, _t in big)
+    cigars = os.path.join(tmp, "pair.cig")
+    with open(cigars, "w") as fh:
+        fh.write(text)
+    return {"x": x, "y": y, "seqs": {"X": x, "Y": y_fa}, "fasta": fasta, "cigars": cigars,
+            "text": text, "records": [r for r, _t in big], "truth": [t for _r, t in big],
+            "small": small, "truth_all": truth}
+
+
+def five_problems(nuc, W: int, Dp: int, expansion: int, B: int, device):
+    """(plan, WindowProblem) of B fiveState problems on (Dp - 96) / 2-base
+    segments of the genome pair (guide anchors every 10th true pair, ragged
+    ends mixed), through the symbol lane's staging and device-built E."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.core.window import smooth_band
+    from cpecan_signal_tpu_torch.em.discrete import collect_symbol_split_jobs
+    from cpecan_signal_tpu_torch.engine import readpath
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams
+    from cpecan_signal_tpu_torch.models.state_machines import (bind_symbol_sequences,
+                                                                make_symbol_sm5)
+
+    def make_sm(sx, sy):
+        sm = make_symbol_sm5()
+        bind_symbol_sequences(sm, sx, sy)
+        return sm
+
+    truth, params = nuc["truth_all"], AlignmentParams(diagonal_expansion=expansion)
+    n = (Dp - 96) // 2
+    staged, x1 = [], 0
+    while len(staged) < B:
+        sel = truth[(truth[:, 0] >= x1) & (truth[:, 0] < x1 + n)]
+        c, d = int(sel[0, 1]), int(sel[-1, 1]) + 1
+        i = len(staged)
+        jobs = collect_symbol_split_jobs(make_sm, nuc["x"][x1:x1 + n], nuc["y"][c:d],
+                                         (sel - [x1, c])[::10], params,
+                                         ragged_left=bool(i % 2), ragged_right=i % 4 < 2)
+        x1 += n
+        wb = smooth_band(jobs[0].band, width_multiple=W)
+        if len(jobs) == 1 and wb.W == W and wb.n_diagonals + 2 <= Dp:
+            staged.append((i, *readpath.stage_symbol_job(jobs[0], wb)))
+    bufs, _n = readpath.stage_symbol_bucket(staged, list(range(B)), device)
+    sj0 = staged[0][1]
+    prob, _cx, _cy, _real = readpath.symbol_problem(W, Dp, len(sj0.tp_scalar),
+                                                    len(sj0.start), *bufs)
+    return staged[0][2], prob
+
+
+def phase_five_kernels(nuc, device, stats) -> None:
+    """The forward, stage-3 backward and stage-4 backward with one posterior
+    channel per to-state (pgroups) kernels at the fiveState plan (5 states,
+    13 edges, 3 channels gathered on the device), B = 64 at FIVE_SHAPES and
+    at FIVE_WIDE, against their plain versions on the same CUDA tensors; the
+    last of FIVE_SHAPES gives the kernels line's backward_pgroups entry its
+    times and bound."""
+    import torch
+
+    from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine.plan import edge_table
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    for W, Dp, expansion, B in [(*shape, GENERIC_B) for shape in FIVE_SHAPES] + [FIVE_WIDE]:
+        plan, b = five_problems(nuc, W, Dp, expansion, B, device)
+        edges = pp.to_device(edge_table(plan), device)
+        groups, pgroups = pp.sm3_wgroups(plan), _to_state_pgroups(plan)
+        m = plan.match_state
+        fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+
+        def run_f():
+            return fk.forward_sm3(*fargs)
+
+        F = run_f()
+        bargs = (edges, m, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+
+        def run_b():
+            return fk.backward_sm3(*bargs)
+
+        def run_pg():
+            return fk.backward_sm3(*bargs, stages=4, wgroups=groups, pgroups=pgroups)
+
+        P, T = run_b()
+        got = run_pg()
+        torch.cuda.synchronize()
+        ms = {"forward": cuda_ms(run_f, 3), "backward": cuda_ms(run_b, 3),
+              "backward_pgroups": cuda_ms(run_pg, 3)}
+        plain = {}
+        F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+        (P_ref, T_ref), plain["backward"] = timed_once(lambda: fk.backward_sm3_ref(*bargs))
+        ref, plain["backward_pgroups"] = timed_once(lambda: fk.backward_sm3_ref(
+            *bargs, 4, groups, None, pgroups))
+        e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
+                      (max_err(a, r) for a, r in zip(got, ref))))
+        errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref), "totals": max_err(T, T_ref)}
+        ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+              "p": errs["p"] <= P_ATOL,
+              "totals": all(bool(torch.allclose(t, T_ref, atol=F_ATOL, rtol=F_RTOL))
+                            for t in (T, got[1])),
+              "pgroups p": e4["p"] <= P_ATOL,
+              "exits/gacc": max(e4["exits"], e4["gacc"]) <= WIN_ATOL,
+              "stats": bool(torch.allclose(got[4], ref[4], atol=STATS_ATOL, rtol=STATS_RTOL))}
+        dl = b.d_last
+        cells = int((dl.long() + 1).sum()) * W
+        fwd_in, bwd_in = recursion_inputs(b.E, F, b.diag_scalars, dl,
+                                          nbytes(dl, edges, b.tp_scalar))
+        S = plan.n_states
+        bounds = {"forward": bound(ops_per_cell("forward", edges), fwd_in + nbytes(b.start, F),
+                                   cells),
+                  "backward": bound(ops_per_cell("backward", edges, S),
+                                    bwd_in + nbytes(b.end, P, T), cells),
+                  "backward_pgroups": bound(ops_per_cell("backward_pgroups", edges, S,
+                                                         wgroups=groups, pgroups=pgroups),
+                                            bwd_in + nbytes(b.end, *got), cells)}
+        print(f"kernels fiveState plan ({S} states, {len(plan.edges)} edges, "
+              f"{b.E.shape[2]} channels, {len(pgroups)} posterior channels) W={W} Dp={Dp} "
+              f"B={B}: errors {errs}, pgroups stage 4 "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e4.items()) + f"; ok {ok}; "
+              "ms kernel/plain/bound: "
+              + ", ".join(f"{k} {ms[k]:.3f}/{plain[k]:.3f}/{bounds[k][0]:.4f} ({bounds[k][1]})"
+                          for k in ms), flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"fiveState kernels disagree with their plain versions at "
+                                 f"W={W}: {ok}")
+        stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"], errs["F"])
+        stats["backward"]["max_abs_err"] = max(stats["backward"]["max_abs_err"], errs["p"],
+                                               errs["totals"])
+        st = stats["backward_pgroups"]
+        st["max_abs_err"] = max(st["max_abs_err"], *e4.values())
+        if (W, Dp) == FIVE_SHAPES[-1][:2]:
+            st.update(ms=ms["backward_pgroups"], plain_ms=plain["backward_pgroups"],
+                      bound_ms=bounds["backward_pgroups"][0],
+                      bound_by=bounds["backward_pgroups"][1])
+        del F, P, T, got, ref, F_ref, P_ref, T_ref, b
+        torch.cuda.empty_cache()
+
+
+def cigar_pairs(ops) -> set:
+    """The aligned (x, y) pairs of a CIGAR's match blocks, in the record's
+    own coordinates."""
+    out, i, j = set(), 0, 0
+    for op, n in ops:
+        if op == "M":
+            out.update(zip(range(i, i + n), range(j, j + n)))
+            i += n
+            j += n
+        elif op == "D":
+            i += n
+        else:
+            j += n
+    return out
+
+
+def phase_realign(nuc, fk) -> dict:
+    """cli/realign on the card over the NUC_RECORDS guide records (stdin),
+    the launch counts of this run alone; the realigned pairs scored against
+    the true alignment."""
+    from cpecan_signal_tpu_torch.cli import realign
+    from cpecan_signal_tpu_torch.io.cigar import parse_cigar_line
+
+    out, err = io.StringIO(), io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(nuc["text"])
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = realign.main([nuc["fasta"]])
+    finally:
+        sys.stdin = stdin
+    t_cli = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    recs = [parse_cigar_line(line) for line in out.getvalue().splitlines()]
+    stages = re.search(r"seconds by stage: (.*)", err.getvalue())
+    tail = re.search(r"\btail ([\d.]+)", err.getvalue())
+    n_got = n_true = n_hit = 0
+    for rec, truth in zip(recs, nuc["truth"]):
+        got = cigar_pairs(rec.ops)
+        n_got += len(got)
+        n_true += len(truth)
+        n_hit += len(got & set(map(tuple, truth.tolist())))
+    precision, recall = n_hit / max(n_got, 1), n_hit / max(n_true, 1)
+    print(f"realign: rc={rc} {len(recs)}/{NUC_RECORDS} records realigned "
+          f"({sum(r.strand2 is False for r in recs)} on the reverse strand), {n_got} aligned "
+          f"pairs, {t_cli:.2f} s, host tail {float(tail.group(1)) if tail else None} s; "
+          f"against the true alignment: precision {precision:.4f}, recall {recall:.4f} "
+          f"(>= {QUALITY_MIN}); launches {launches}; seconds by stage: "
+          f"{stages.group(1) if stages else None}", flush=True)
+    if rc != 0 or len(recs) != NUC_RECORDS or stages is None:
+        raise AssertionError(f"realign path failed: rc or records\n{err.getvalue()}")
+    if min(precision, recall) < QUALITY_MIN:
+        raise AssertionError(f"realigned pairs too far from the truth: {precision}, {recall}")
+    if launches["forward"] < 1 or launches["backward"] < 1:
+        raise AssertionError("realign path never launched the forward or backward kernel")
+    return launches
+
+
+def phase_realign_agreement(nuc, device) -> None:
+    """The small records' split jobs through batch_align_jobs on the card
+    and on the CPU plain path: pairs per job, and the CIGARs realigned from
+    each."""
+    import torch
+
+    from cpecan_signal_tpu_torch.cli import realign
+    from cpecan_signal_tpu_torch.engine.batch_align import assemble_pairs, batch_align_jobs
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams
+
+    params = AlignmentParams()
+    heads, spans, jobs = realign.record_jobs(nuc["small"], nuc["seqs"], params, None)
+    t0 = time.perf_counter()
+    got = batch_align_jobs(jobs, params.threshold, device=device)
+    t1 = time.perf_counter()
+    want = batch_align_jobs(jobs, params.threshold, device=torch.device("cpu"))
+    t2 = time.perf_counter()
+    worst = [pairs_agree(g, w) for g, w in zip(got, want)]
+    miss = max(m for m, _ in worst)
+    drift = max(d for _, d in worst)
+    lines = [[realign.finish_record(rec, assemble_pairs(frags[span]), sx, sy, aall,
+                                    params)[0].to_line()
+              for rec, (sx, sy, aall), span in zip(nuc["small"], heads, spans)]
+             for frags in (got, want)]
+    print(f"realign agreement: {len(jobs)} jobs of {len(nuc['small'])} records of "
+          f"{[n for _x, n, _k in NUC_SMALL]} bases, cuda vs cpu ({t1 - t0:.2f} s / "
+          f"{t2 - t1:.2f} s): max pairs differing {miss} (tol {PAIR_TOL}), max posterior "
+          f"drift {drift:.3g} (tol {PROB_TOL}), CIGARs equal {lines[0] == lines[1]}",
+          flush=True)
+    if miss > PAIR_TOL or drift > PROB_TOL or lines[0] != lines[1]:
+        raise AssertionError("realign: cuda and cpu paths disagree")
+
+
+def phase_nuc_em(tmp, nuc, fk) -> dict:
+    """cli/em on the card over the 1 Mb chunk: EM_ITERATIONS iterations, one
+    trial from Jukes-Cantor emissions (NUC_JC_START), the launch counts of
+    this run alone; the likelihood required not to fall, and the trained
+    match emissions to favour identity (trace above 0.5) more than the
+    start did."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.cli import em
+    from cpecan_signal_tpu_torch.em.accumulators import DiscreteHmm
+
+    model = os.path.join(tmp, "nucleotide.hmm")
+    matrix = os.path.join(tmp, "lastz.matrix")
+    buf = io.StringIO()
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = em.main(["--alignments", nuc["cigars"], "--fastas", nuc["fasta"],
+                      "--outputModel", model, "--iterations", str(EM_ITERATIONS),
+                      "--trials", "1", "--setJukesCantorStartingEmissions", str(NUC_JC_START),
+                      "--blastScoringMatrixFile", matrix])
+    t_em = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    log = buf.getvalue()
+    chunks = re.search(r"(\d+) alignments in (\d+) chunks", log)
+    iters = re.findall(r"E-step ([\d.]+) s, (\d+) buckets, launches (\{[^}]*\}), "
+                       r"likelihood (-?[\d.]+)", log)
+    liks = [float(lik) for *_r, lik in iters]
+    hmm = DiscreteHmm.load(model)
+    trace = float(np.trace(hmm.emissions[0]))
+    start = DiscreteHmm.empty(5, 4)
+    em.set_jukes_cantor(start, NUC_JC_START)
+    trace0 = float(np.trace(start.emissions[0]))
+    print(f"em nucleotide: rc={rc} {chunks.group(0) if chunks else None}, {EM_ITERATIONS} "
+          f"iterations in {t_em:.2f} s; per iteration E-step s {[float(s) for s, *_r in iters]}, "
+          f"buckets {[int(b) for _s, b, *_r in iters]}, launches {[l for _s, _b, l, _k in iters]}; "
+          f"likelihood {liks}; match emission trace {trace:.4f} (start {trace0:.4f})",
+          flush=True)
+    if rc != 0 or len(iters) != EM_ITERATIONS or not os.path.exists(matrix):
+        raise AssertionError(f"nucleotide EM path failed: rc or iterations\n{log}")
+    for a, b in zip(liks, liks[1:]):
+        if b < a - LIK_DROP * abs(a):
+            raise AssertionError(f"nucleotide EM likelihood fell: {liks}")
+    if trace <= max(0.5, trace0):
+        raise AssertionError(f"trained match emissions do not favour identity: {trace}")
+    if launches["forward"] < 1 or launches["backward_pgroups"] < 1:
+        raise AssertionError("nucleotide EM never launched the forward or pgroups kernel")
+    return launches
+
+
+def phase_nuc_em_agreement(tmp, nuc, device) -> None:
+    """One E-step of the trained model over the small records on the card
+    and on the CPU plain path; and two card runs of one E-step over the 1 Mb
+    chunk, which must agree bit for bit."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch.cli import em
+    from cpecan_signal_tpu_torch.em.accumulators import DiscreteHmm
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams
+
+    params = AlignmentParams()
+    hmm = DiscreteHmm.load(os.path.join(tmp, "nucleotide.hmm"))
+    t0 = time.perf_counter()
+    c, p = (em._estep_all_chunks([nuc["small"]], nuc["seqs"], params, hmm, dev)
+            for dev in (device, torch.device("cpu")))
+    t1 = time.perf_counter()
+    errs = {"trans": float(np.abs(c.transitions - p.transitions).max()),
+            "emiss": float(np.abs(c.emissions - p.emissions).max()),
+            "likelihood": abs(c.likelihood - p.likelihood) / abs(p.likelihood)}
+    ok = (np.allclose(c.transitions, p.transitions, rtol=STEP_RTOL, atol=STEP_ATOL)
+          and np.allclose(c.emissions, p.emissions, rtol=STEP_RTOL, atol=STEP_ATOL)
+          and errs["likelihood"] <= LIK_RTOL)
+    runs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        runs.append((em._estep_all_chunks([nuc["records"]], nuc["seqs"], params, hmm, device),
+                     time.perf_counter() - t))
+    (a, ta), (b, tb) = runs
+    same = (np.array_equal(a.transitions, b.transitions)
+            and np.array_equal(a.emissions, b.emissions) and a.likelihood == b.likelihood)
+    print(f"em nucleotide agreement: one E-step over the small records, cuda vs cpu "
+          f"({t1 - t0:.2f} s): max abs err trans {errs['trans']:.3g}, emiss "
+          f"{errs['emiss']:.3g} (rtol {STEP_RTOL} atol {STEP_ATOL}), likelihood relative "
+          f"{errs['likelihood']:.3g} (tol {LIK_RTOL}); two card E-steps over the 1 Mb chunk "
+          f"({ta:.2f} s, {tb:.2f} s) bit-identical {same}", flush=True)
+    if not ok or not same:
+        raise AssertionError("nucleotide E-step: cuda and cpu disagree, or two card runs differ")
+
+
 def main() -> int:
     import torch
 
@@ -826,6 +1235,8 @@ def main() -> int:
         stats = phase_kernels(pore, device, rng)
         phase_wide(pore, device, rng, stats)
         phase_generic_kernels(pore, device, rng, stats)
+        nuc = nucleotide_set(tmp)
+        phase_five_kernels(nuc, device, stats)
 
         # --- alignment path through the CLI; the reference and the reads
         # come from a generator of their own, so that the read set does not
@@ -916,6 +1327,14 @@ def main() -> int:
             phase_generic_agreement(small[:MACHINES[machine][2]], ref_seq, model, device,
                                     machine)
         phase_vanilla_timing(paths, ref_seq, model, device, card)
+
+        # --- the nucleotide paths through their CLIs: realignment, then
+        # nucleotide EM; each checked against the CPU plain path on small
+        # records
+        path_launches.append(phase_realign(nuc, fk))
+        phase_realign_agreement(nuc, device)
+        path_launches.append(phase_nuc_em(tmp, nuc, fk))
+        phase_nuc_em_agreement(tmp, nuc, device)
         launches = {k: sum(pl[k] for pl in path_launches) for k in KERNELS}
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -13,8 +13,9 @@
 //   ds            (B, ds_rows >= Dp+1, 8) int32 DS_* scalars (nh = 1)
 //   F             (B, Dp, S, W)   forward log-probs
 //   P             (B, Dp, P, W)   posteriors of the states in pmask (P = its
-//                                 set bits; the match state alone: (B, Dp, W));
-//                                 T (B, Dp) totals
+//                                 set bits; the match state alone: (B, Dp, W)),
+//                                 or at stage 4 with edge groups the group sums
+//                                 of the per-edge posteriors; T (B, Dp) totals
 //   edges         (n_edges, 12)   int32 edge table (engine/plan.edge_table)
 //   exits         (B, Dp, G)      stage 4: window-group mass leaving lane W-1
 //   gacc          (B, G, W)       stage 4: window-group tallies left at d = 0
@@ -41,6 +42,14 @@
 #define LIK_LANE 64
 
 enum { DS_FL = 0, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS };
+
+// The posterior channels of the pgroups mode: channel c sums the per-edge
+// posteriors of the edges whose bits are set in m[c] (bit e = edge e, all
+// MAX_EDGES edges).  Passed by value, so it costs the other instances no
+// register and no load.
+struct ChannelGroups {
+  unsigned long long m[MAX_S];
+};
 enum { SRC_LOWER = 0, SRC_MIDDLE = 1, SRC_UPPER = 2 };
 
 // ---------------------------------------------------------------------------
@@ -303,7 +312,9 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // Replaces cpecan_signal_tpu/ops/pallas_fb.py:backward_sm3 (_backward_kernel)
 // at stage 3 (EM = false), with the match posterior or the echelon
 // per-state posteriors (pstates, :537-547), and at stage 4 with window
-// groups (EM = true), with one problem per row (nh = 1).
+// groups (EM = true), with the match posterior or the per-edge-group
+// posterior channels (pgroups, :535, :579-599), with one problem per row
+// (nh = 1).
 // Bound: the same serial diagonal chain as the forward kernel, plus two
 // block-wide logsumexp reductions per diagonal (the total over S x W and the
 // match-through-diagonal correction).  Design: the forward kernel's shape
@@ -340,6 +351,21 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // plain version.  The bound stays the serial chain: the per-edge work is
 // independent across lanes and takes instruction slots, not barriers.
 //
+// Edge groups (PGROUPS, stage 4 only: the nucleotide E-step's one group per
+// to-state, whose channels feed the symbol-pair emission tallies; later the
+// HDP assignment masks).  Channel c of P is the sum, in edge order, of the
+// per-edge posteriors of group c, in place of the match posterior; stats,
+// exits and gacc are as above.  The prologue turns the P 64-bit group masks
+// into one channel bitmask per edge in shared memory, so that the edge loop
+// reads one word an edge; the channel sums live in MAX_S registers, one per
+// channel, written once the edges are done.  The mode is a compile-time
+// instance, so the match-posterior instances keep their code and registers;
+// its windows up to PGROUPS_THREADS lanes take a launch bound that leaves
+// it the registers the channel sums need (96 a thread, no spill, against 64
+// and 12 bytes spilled under the 1024 bound: 64.04 against 65.47 ms at the
+// fiveState plan, W = 128, Dp = 4096, B = 64, on an H100 80GB HBM3 at 700 W,
+// tools/torch_backward_launch_bounds.py).
+//
 // Registers.  MAX_THREADS is the kernel's launch bound.  At 1024 it holds
 // the kernel to 64 registers a thread, so that a block of up to 1024 lanes
 // fits an SM's 65536 registers; stage 4 always runs so (93 registers
@@ -349,7 +375,8 @@ __global__ void forward_kernel(const float* __restrict__ E,
 // 700 W, tools/torch_backward_launch_bounds.py), so windows that fit
 // NARROW_THREADS lanes take that second instance.
 #define NARROW_THREADS 896
-template <bool EM, bool PSTATES, int MAX_THREADS>
+#define PGROUPS_THREADS 512
+template <bool EM, bool PSTATES, bool PGROUPS, int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
     backward_kernel(const float* __restrict__ E, const float* __restrict__ F,
                     const int* __restrict__ ds, const int* __restrict__ d_last,
@@ -359,9 +386,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
                     float* __restrict__ gacc_out, float* __restrict__ stats,
                     int Dp, int De, int C, int S, int W, int n_tp, int n_edges,
                     int ds_rows, unsigned pmask, int G, unsigned gm0,
-                    unsigned gm1, unsigned gm2, unsigned gm3) {
+                    unsigned gm1, unsigned gm2, unsigned gm3,
+                    ChannelGroups pgm, int NPG) {
   // 3 carry rows x S x (W + 2); at stage 4 then n_edges x W per-thread
-  // partial sums and 2 parity rows x G x W for the window-group shift
+  // partial sums and 2 parity rows x G x W for the window-group shift; with
+  // edge groups then one channel bitmask per edge
   extern __shared__ float carry[];
   __shared__ int sh_edges[MAX_EDGES * EDGE_COLS];
   __shared__ float red[4][32];
@@ -373,6 +402,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int i = j; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
   float* part = carry + 3 * S * WP;  // part[e * W + j]: thread j's own
   float* gsh = part + n_edges * W;   // gsh[(parity * G + g) * W + j]
+  unsigned* pch_of = (unsigned*)(gsh + 2 * G * W);  // PGROUPS: edge -> channels
   const unsigned gmask[MAX_G] = {gm0, gm1, gm2, gm3};
   float gacc[MAX_G];
   float lik = 0.0f;
@@ -381,6 +411,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) gacc[g] = 0.0f;
   }
+  if constexpr (PGROUPS) {
+    for (int e = j; e < n_edges; e += blockDim.x) {
+      unsigned cm = 0u;
+      for (int c = 0; c < NPG; ++c)
+        if ((pgm.m[c] >> e) & 1ull) cm |= 1u << c;
+      pch_of[e] = cm;
+    }
+  }
   __syncthreads();
 
   const float* tp = tps + (size_t)b * n_tp;
@@ -388,7 +426,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int* dsb = ds + (size_t)b * ds_rows * 8;
   const float* Eb = E + (size_t)b * De * C * W;
   const float* Fb = F + (size_t)b * Dp * S * W;
-  const int NP = PSTATES ? __popc(pmask) : 1;  // posterior channels
+  const int NP = PGROUPS ? NPG : (PSTATES ? __popc(pmask) : 1);  // P channels
   const int match_state = __ffs((int)pmask) - 1;  // PSTATES = false: its state
   float* Pb = P + (size_t)b * Dp * NP * W;
   float* Tb = T + (size_t)b * Dp;
@@ -491,6 +529,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (j == 0) Tb[d] = total;
 
     // --- posteriors of the states in pmask, masked to x > 0 and y > 0
+    // (with edge groups P is written after the per-edge posteriors below)
     const bool pos_ok = valid && xmy > -d && xmy < d;
     if constexpr (PSTATES) {
       int pc = 0;
@@ -503,7 +542,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
           ++pc;
         }
       }
-    } else {
+    } else if constexpr (!PGROUPS) {
       float mf = 0.0f, mb = 0.0f;
 #pragma unroll
       for (int s = 0; s < MAX_S; ++s)
@@ -528,6 +567,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
       float pg[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) pg[g] = 0.0f;
+      float pch[MAX_S];
+      if constexpr (PGROUPS) {
+#pragma unroll
+        for (int c = 0; c < MAX_S; ++c) pch[c] = 0.0f;
+      }
       for (int e = 0; e < n_edges; ++e) {
         const int* er = sh_edges + e * EDGE_COLS;
         const int src = er[0];
@@ -550,6 +594,17 @@ __global__ void __launch_bounds__(MAX_THREADS)
         for (int g = 0; g < MAX_G; ++g)
           if (g < G && e < 32 && ((gmask[g] >> e) & 1u))
             pg[g] = __fadd_rn(pg[g], pe);
+        if constexpr (PGROUPS) {
+          const unsigned cm = pch_of[e];
+#pragma unroll
+          for (int c = 0; c < MAX_S; ++c)
+            if ((cm >> c) & 1u) pch[c] = __fadd_rn(pch[c], pe);
+        }
+      }
+      if constexpr (PGROUPS) {
+#pragma unroll
+        for (int c = 0; c < MAX_S; ++c)
+          if (c < NP) Pb[((size_t)d * NP + c) * W + j] = pch[c];
       }
       if (d >= 1) lik = __fadd_rn(lik, total);
 #pragma unroll
@@ -610,15 +665,17 @@ static cudaError_t carry_smem(const void* fn, int S, int W, size_t extra,
 
 // One backward launch: a block of W threads per problem, ``extra`` floats
 // of dynamic shared memory past the carry rows.
-template <bool EM, bool PSTATES, int MAX_THREADS, typename... Args>
+template <bool EM, bool PSTATES, bool PGROUPS, int MAX_THREADS,
+          typename... Args>
 static cudaError_t launch_backward(int B, int S, int W, size_t extra,
                                    cudaStream_t stream, Args... args) {
   size_t smem;
   cudaError_t err = carry_smem(
-      (const void*)backward_kernel<EM, PSTATES, MAX_THREADS>, S, W, extra,
-      &smem);
+      (const void*)backward_kernel<EM, PSTATES, PGROUPS, MAX_THREADS>, S, W,
+      extra, &smem);
   if (err != cudaSuccess) return err;
-  backward_kernel<EM, PSTATES, MAX_THREADS><<<B, W, smem, stream>>>(args...);
+  backward_kernel<EM, PSTATES, PGROUPS, MAX_THREADS>
+      <<<B, W, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -628,9 +685,10 @@ template <bool PSTATES, typename... Args>
 static cudaError_t launch_stage3(int B, int S, int W, cudaStream_t stream,
                                  Args... args) {
   if (W <= NARROW_THREADS)
-    return launch_backward<false, PSTATES, NARROW_THREADS>(B, S, W, 0, stream,
-                                                           args...);
-  return launch_backward<false, PSTATES, 1024>(B, S, W, 0, stream, args...);
+    return launch_backward<false, PSTATES, false, NARROW_THREADS>(
+        B, S, W, 0, stream, args...);
+  return launch_backward<false, PSTATES, false, 1024>(B, S, W, 0, stream,
+                                                      args...);
 }
 
 extern "C" {
@@ -676,15 +734,16 @@ int fb_backward_sm3(const float* E, const float* F, const int* ds,
   if (err != cudaSuccess) return (int)err;
   if (pmask <= 0 || (pmask >> S) != 0) return (int)cudaErrorInvalidValue;
   float* none = nullptr;
+  const ChannelGroups no_groups = {};
   if (__builtin_popcount(pmask) == 1)
     return (int)launch_stage3<false>(
         B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
         none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-        (unsigned)pmask, 0, 0u, 0u, 0u, 0u);
+        (unsigned)pmask, 0, 0u, 0u, 0u, 0u, no_groups, 0);
   return (int)launch_stage3<true>(
       B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
       none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-      (unsigned)pmask, 0, 0u, 0u, 0u, 0u);
+      (unsigned)pmask, 0, 0u, 0u, 0u, 0u, no_groups, 0);
 }
 
 // Stage 4: G (1..MAX_G) window groups; gm<g> is group g's edge bitmask
@@ -700,11 +759,46 @@ int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
   if (err != cudaSuccess) return (int)err;
   if (G < 1 || G > MAX_G || match_state < 0 || match_state >= S)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_backward<true, false, 1024>(
+  const ChannelGroups no_groups = {};
+  return (int)launch_backward<true, false, false, 1024>(
       B, S, W, (size_t)(n_edges + 2 * G) * W, (cudaStream_t)stream, E, F, ds,
       d_last, end, tps, edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp,
       n_edges, ds_rows, 1u << match_state, G, (unsigned)gm0, (unsigned)gm1,
-      (unsigned)gm2, (unsigned)gm3);
+      (unsigned)gm2, (unsigned)gm3, no_groups, 0);
+}
+
+// Stage 4 with edge groups: as fb_backward_sm3_em, but P (B, Dp, NPG, W)
+// carries the NPG (1..MAX_S) channels of the per-edge posteriors summed
+// over the edges of masks[c] (a host array; bit e = edge e < n_edges).
+int fb_backward_sm3_pgroups(const float* E, const float* F, const int* ds,
+                            const int* d_last, const float* end,
+                            const float* tps, const int* edges, float* P,
+                            float* T, float* exits, float* gacc, float* stats,
+                            int B, int Dp, int De, int C, int S, int W,
+                            int n_tp, int n_edges, int ds_rows, int G, int gm0,
+                            int gm1, int gm2, int gm3, int NPG,
+                            const long long* masks, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (G < 1 || G > MAX_G || NPG < 1 || NPG > MAX_S || n_edges > MAX_EDGES)
+    return (int)cudaErrorInvalidValue;
+  ChannelGroups groups = {};
+  for (int c = 0; c < NPG; ++c) {
+    groups.m[c] = (unsigned long long)masks[c];
+    if (n_edges < 64 && (groups.m[c] >> n_edges) != 0ull)
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t extra = (size_t)(n_edges + 2 * G) * W + n_edges;
+  if (W <= PGROUPS_THREADS)
+    return (int)launch_backward<true, false, true, PGROUPS_THREADS>(
+        B, S, W, extra, (cudaStream_t)stream, E, F, ds, d_last, end, tps,
+        edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp, n_edges,
+        ds_rows, 1u, G, (unsigned)gm0, (unsigned)gm1, (unsigned)gm2,
+        (unsigned)gm3, groups, NPG);
+  return (int)launch_backward<true, false, true, 1024>(
+      B, S, W, extra, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges,
+      P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp, n_edges, ds_rows, 1u, G,
+      (unsigned)gm0, (unsigned)gm1, (unsigned)gm2, (unsigned)gm3, groups, NPG);
 }
 
 }  // extern "C"

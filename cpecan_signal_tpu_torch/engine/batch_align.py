@@ -6,8 +6,11 @@ module stages every threeState job into the device-packed fast lane
 (engine/readpath.py), dispatches waves while later reads are still being
 prepared, collects all waves with one copy, and re-routes the rare job whose
 pairs overflowed the compact extraction through the full-grid path.  Jobs
-of the generic window machines (vanilla, fourState, echelon) are packed on
-the host into buckets of one machine and one window width, every bucket
+of the symbol machine (fiveState, realign) take the symbol lane of
+engine/readpath.py, whose emissions are gathered on the device; one that
+overflows re-routes to the generic machines' full-grid buckets.  Jobs of the
+generic window machines (vanilla, fourState, echelon) are packed on the
+host into buckets of one machine and one window width, every bucket
 dispatched before any result is awaited, and their posterior grids copied
 back once and thresholded on the host.
 """
@@ -153,23 +156,21 @@ def _run_generic_buckets(jobs, wbands, groups, threshold, device, out, timing=No
 def job_window(band) -> WindowBand:
     """The constant-step window a job runs in: 64 lanes when its true band
     fits (most split jobs under the default expansion), else a multiple of
-    128."""
+    128 (engine/batch_align.py:324-333, for the threeState and symbol jobs
+    there)."""
     wb = smooth_band(band, width_multiple=64)
     return wb if wb.W == 64 else smooth_band(band, width_multiple=128)
 
 
 def _unsupported(job) -> NotImplementedError | None:
-    """The error for a job whose machine has no lane in the port yet, None
-    for a job the port aligns."""
+    """The error for a threeStateHdp job, whose machine has no lane in the
+    port yet; None for every job the port aligns."""
     sm = job.sm
-    if getattr(sm, "symbol_codes", None) is not None:
-        what = "the symbol (fiveState/realign) lane, ROADMAP queue 1 item 8"
-    elif getattr(sm, "hdp_pack", None) is not None or sm.spec.name == "threeStateHdp":
-        what = "threeStateHdp alignment, ROADMAP queue 1 item 9"
-    else:
+    if getattr(sm, "hdp_pack", None) is None and sm.spec.name != "threeStateHdp":
         return None
-    return NotImplementedError(f"{sm.spec.name} jobs need {what}; the port aligns "
-                               "threeState, fourState, vanilla and echelon jobs")
+    return NotImplementedError(f"{sm.spec.name} jobs need threeStateHdp alignment, "
+                               "ROADMAP queue 1 item 9; the port aligns threeState, "
+                               "fourState, vanilla, echelon and fiveState jobs")
 
 
 def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
@@ -180,12 +181,14 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
     computes while the host prepares the remaining reads; one copy then
     collects every wave.  Jobs of the generic window machines are bucketed
     by (machine, window width) and run after the threeState waves are
-    collected.  Returns (jobs, pairs) with pairs aligned to jobs.  Symbol
-    and threeStateHdp jobs raise NotImplementedError."""
+    collected, symbol (fiveState) jobs through the symbol lane after them.
+    Returns (jobs, pairs) with pairs aligned to jobs.  threeStateHdp jobs
+    raise NotImplementedError."""
     t0 = time.perf_counter()
     jobs: list[SplitJob] = []
     wbands = []
     staged_wave: list = []
+    staged_sym: list = []
     pending: list = []
     generic: dict[tuple, list[int]] = {}
     ev_acc = 0
@@ -208,7 +211,11 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
                 err = _unsupported(j)
                 if err is not None:
                     raise err
-                generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
+                sym = readpath.stage_symbol_job(j, wb)
+                if sym is not None:
+                    staged_sym.append((i, *sym))
+                else:
+                    generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
                 continue
             fj, plan = readpath.stage_fast_job(j, wb)
             staged_wave.append((i, fj, plan))
@@ -228,6 +235,13 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
             out[ji] = pairs
     if overflow:
         _run_full_grid(jobs, wbands, overflow, threshold, device, out)
+    if staged_sym:
+        for ji, pairs in readpath.run_symbol_jobs(staged_sym, threshold, device=device,
+                                                  timing=timing).items():
+            if pairs is None:   # overflow: the full-grid generic buckets
+                generic.setdefault((jobs[ji].sm.spec.name, wbands[ji].W), []).append(ji)
+            else:
+                out[ji] = pairs
     if generic:
         _run_generic_buckets(jobs, wbands, generic, threshold, device, out, timing)
     return jobs, out

@@ -2,7 +2,8 @@
 engine/pallas_pipeline.py:32-214, 256-391, 426-447): threeState problems
 (emissions -> forward -> backward, and the E-step tallies on top), and the
 generic window problems of any machine, whose emission and per-cell
-transition grids are built on the host (forward -> backward).
+transition grids are built on the host (forward -> backward, at stage 3 or
+with the EM tallies of stage 4).
 
 Index conventions: per-x arrays are indexed by x (= x_idx + 1, so slot 0 is
 the x = -1 sentinel) shifted by +PADX so window cells left of the matrix stay
@@ -230,7 +231,8 @@ def run_sm3(plan: EnginePlan, W: int, batch: SM3Problem, stages: int = 3):
 
 def sm3_wgroups(plan: EnginePlan) -> tuple[tuple[int, ...]]:
     """The one stage-4 window group of the threeState E-step: the edges into
-    shortGapX, whose posteriors are the per-k-mer gapX tallies."""
+    shortGapX, whose posteriors are the per-k-mer gapX tallies (also the
+    default group of ``run_window`` at stage 4, as in the JAX package)."""
     return (tuple(i for i, e in enumerate(plan.edges) if e.to == SHORT_GAP_X),)
 
 
@@ -407,18 +409,26 @@ def window_problem_from_numpy(plan, prob, device: torch.device, Dp: int | None =
 
 
 def run_window(plan: EnginePlan, W: int, batch: WindowProblem, stages: int = 3,
-               pstates: tuple[int, ...] | None = None):
+               pstates: tuple[int, ...] | None = None,
+               wgroups: tuple[tuple[int, ...], ...] | None = None,
+               pgroups: tuple[tuple[int, ...], ...] | None = None):
     """Forward -> fused backward on a stacked WindowProblem batch, on the
-    batch's device (run_window_pallas at stage 3).  Returns (p (B, Dp, W)
-    match posteriors, or (B, Dp, P, W) with ``pstates``, totals (B, Dp)).
-    The vanilla E-step's stage 4 arrives with ROADMAP queue 1 item 9."""
-    if stages != 3:
-        raise ValueError(f"stages={stages}: the generic window path runs stage 3 "
-                         "(the vanilla E-step is ROADMAP queue 1 item 9)")
+    batch's device (run_window_pallas, engine/pallas_pipeline.py:363-390).
+    Stage 3 returns (p (B, Dp, W) match posteriors, or (B, Dp, P, W) with
+    ``pstates``, totals (B, Dp)).  Stage 4 returns (p, totals, exits (B, Dp,
+    G), gacc (B, G, W), stats (B, 128)), the EM tallies of ops/fb_kernels
+    .backward_sm3: ``wgroups`` defaults to one group, the edges into
+    shortGapX, as in the JAX function, and with ``pgroups`` p is (B, Dp, P,
+    W), the per-edge-group posterior sums."""
+    if stages not in (3, 4):
+        raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     if batch.E.shape[-1] != W:
         raise ValueError(f"E has {batch.E.shape[-1]} lanes, not W = {W}")
     edges = to_device(edge_table(plan), batch.E.device)
     F = fk.forward_sm3(edges, batch.E, batch.diag_scalars, batch.d_last, batch.start,
                        batch.tp_scalar)
+    if stages == 4 and wgroups is None:
+        wgroups = sm3_wgroups(plan)
     return fk.backward_sm3(edges, plan.match_state, batch.E, F, batch.diag_scalars,
-                           batch.d_last, batch.end, batch.tp_scalar, pstates=pstates)
+                           batch.d_last, batch.end, batch.tp_scalar, stages=stages,
+                           wgroups=wgroups, pstates=pstates, pgroups=pgroups)

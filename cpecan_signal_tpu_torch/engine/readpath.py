@@ -41,6 +41,9 @@ _ALLOWED_B = (1, 2, 4, 8, 16, 32, 64, 128)
 _DQ = 256        # Dp quantization ladder step (bounds the number of buckets)
 _NBASE = 4       # base-model slots per bucket (stacked table upload)
 _EXTRACT_L = 16  # per-diagonal slot cap of the two-stage compaction
+MAX_BUCKET = 64            # symbol-lane problems per bucket
+BUCKET_CELLS = 3 << 27     # symbol-lane window cells per bucket (the E-step's
+                           # E 4.8 GB, F and P 8.1 GB each)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -566,6 +569,201 @@ def run_fast_jobs(staged: list[tuple[int, _FastJob, object]], threshold: float,
 
     t0 = _time.perf_counter()
     pending = dispatch_fast_jobs(staged, threshold, device=device)
+    if timing is not None:
+        timing["host_pack"] = timing.get("host_pack", 0.0) + (_time.perf_counter() - t0)
+    return collect_fast_jobs(pending, timing=timing)
+
+
+# ---------------------------------------------------------------------------
+# Symbol-machine (fiveState nucleotide) lane (engine/readpath.py:905-1127)
+# ---------------------------------------------------------------------------
+# The realign and nucleotide-EM machines emit from tiny symbol tables (5x5
+# match, 5 gap rows, stateMachine.c:60-194), so E is a gather of the per-cell
+# symbol-code pair, built on the device from two small code arrays instead of
+# a host-packed (Dp, 3, W) grid.  The upload is the int8 codes, the window
+# stream and small meta blocks; alignment reads back the compacted pairs.
+
+@dataclass
+class _SymJob:
+    """Staged inputs of one symbol-machine split job."""
+
+    tab_key: bytes           # the tables' bytes (buckets share one table set)
+    match_t: np.ndarray      # (5, 5) f32
+    gapx_t: np.ndarray       # (5,) f32
+    gapy_t: np.ndarray       # (5,) f32
+    cx: np.ndarray           # (lX + 1,) int32 codes incl. the x = -1 sentinel
+    cy: np.ndarray           # (lY + 1,) int32
+    wband: WindowBand
+    tp_scalar: np.ndarray
+    start: np.ndarray
+    end: np.ndarray
+    off_x: int
+    off_y: int
+
+
+def stage_symbol_job(job, wband: WindowBand):
+    """SplitJob with a bound symbol machine -> (_SymJob, plan), else None."""
+    sm = job.sm
+    codes = getattr(sm, "symbol_codes", None)
+    tables = getattr(sm, "symbol_tables", None)
+    if codes is None or tables is None:
+        return None
+    plan, tp_scalar, cell_sources = _build_plan(sm, "exact")
+    if cell_sources:
+        return None
+    mt, gx, gy = (pp._san(t) for t in tables)
+    cx, cy = codes
+    return _SymJob(
+        tab_key=mt.tobytes() + gx.tobytes() + gy.tobytes(), match_t=mt, gapx_t=gx,
+        gapy_t=gy, cx=np.asarray(cx, dtype=np.int32), cy=np.asarray(cy, dtype=np.int32),
+        wband=wband, tp_scalar=pp._san(tp_scalar),
+        start=pp._san(sm.ragged_start if job.ragged_left else sm.start),
+        end=pp._san(sm.ragged_end if job.ragged_right else sm.end),
+        off_x=job.off_x, off_y=job.off_y), plan
+
+
+def cell_codes(cxp, cyp, w0, W: int):
+    """The symbol codes (B, Dp, W) int32 of every window cell's x and y:
+    cell (d, j) of problem b lies at x = (d + xmy) / 2, y = (d - xmy) / 2
+    with xmy = w0[b, d] + 2j, both clipped to the code arrays cxp / cyp (B,
+    Lc), whose slot 0 is position -1 (code 4 = N)."""
+    B, Dp = w0.shape
+    dev = w0.device
+    Lc = cxp.shape[1]
+    d = torch.arange(Dp, dtype=torch.int32, device=dev)[None, :, None]
+    xmy = w0[:, :, None] + 2 * torch.arange(W, dtype=torch.int32, device=dev)
+    rows = (torch.arange(B, device=dev) * Lc)[:, None, None]
+    return (cxp.reshape(-1)[rows + ((d + xmy) // 2).clamp(0, Lc - 1)],
+            cyp.reshape(-1)[rows + ((d - xmy) // 2).clamp(0, Lc - 1)])
+
+
+def symbol_emissions(mt, gx, gy, cxp, cyp, w0, d_last, W: int) -> torch.Tensor:
+    """Symbol emission grid E (B, Dp+2, 3, W) of a bucket, on its device
+    (engine/readpath.py:996-1012): the cell's codes (``cell_codes``) pick
+    channel 0 = gapX gx[cx], 1 = match mt[cx, cy], 2 = gapY gy[cy] (the
+    machine's class order).  Rows d > d_last and the two rows past Dp are
+    zero."""
+    B, Dp = w0.shape
+    ix, iy = (c.long() for c in cell_codes(cxp, cyp, w0, W))
+    live = torch.arange(Dp, device=w0.device)[None, :, None] <= d_last[:, None, None]
+    E = torch.zeros((B, Dp + 2, 3, W), dtype=torch.float32, device=w0.device)
+    E[:, :Dp, 0] = torch.where(live, gx[ix], 0.0)
+    E[:, :Dp, 1] = torch.where(live, mt.reshape(-1)[ix * mt.shape[1] + iy], 0.0)
+    E[:, :Dp, 2] = torch.where(live, gy[iy], 0.0)
+    return E
+
+
+def symbol_buckets(staged) -> list[tuple]:
+    """Buckets of staged symbol jobs, for realignment and the nucleotide
+    E-step alike: one (plan, W, Dp rung, table set) each, consecutive jobs,
+    at most MAX_BUCKET problems and BUCKET_CELLS window cells (one job at
+    least).  Returns [(plan, W, Dp, staged indices)]."""
+    groups: dict[tuple, list[int]] = {}
+    for si, (_ji, sj, plan) in enumerate(staged):
+        key = (plan, sj.wband.W, _dp_ladder(sj.wband.n_diagonals + 2), sj.tab_key)
+        groups.setdefault(key, []).append(si)
+    out = []
+    for (plan, W, Dp, _tk), sidx in groups.items():
+        cap = max(1, min(MAX_BUCKET, BUCKET_CELLS // (Dp * W)))
+        out += [(plan, W, Dp, sidx[lo:lo + cap]) for lo in range(0, len(sidx), cap)]
+    return out
+
+
+def stage_symbol_bucket(staged, idxs, device: torch.device):
+    """Host staging of one bucket of symbol jobs (``idxs`` into ``staged``):
+    the flat int8 code stream, the window stream and the meta blocks,
+    uploaded to ``device``.  Returns (tensors, the jobs' y codes)."""
+    sj0 = staged[idxs[0]][1]
+    n_tp, S = len(sj0.tp_scalar), len(sj0.start)
+    B = len(idxs)
+    meta_i = np.zeros((B, _META_I), dtype=np.int32)
+    meta_f = np.zeros((B, n_tp + 2 * S), dtype=np.float32)
+    codes_l, win_l = [], []
+    co = wo = n_cy = 0
+    for bi, si in enumerate(idxs):
+        sj = staged[si][1]
+        D = sj.wband.n_diagonals
+        meta_i[bi, MI_RANK_LEN] = len(sj.cx)
+        meta_i[bi, MI_EV_LEN] = len(sj.cy)
+        meta_i[bi, MI_WIN_D] = D
+        meta_i[bi, MI_W00] = int(sj.wband.w0[0])
+        meta_i[bi, MI_REAL] = 1
+        meta_i[bi, MI_RANK_OFF] = co
+        meta_i[bi, MI_EV_OFF] = co + len(sj.cx)
+        meta_i[bi, MI_WIN_OFF] = wo
+        wenc = _flat_win_encode(sj.wband)
+        codes_l += [sj.cx.astype(np.int8), sj.cy.astype(np.int8)]
+        win_l.append(wenc)
+        co += len(sj.cx) + len(sj.cy)
+        wo += len(wenc)
+        n_cy += len(sj.cy)
+        meta_f[bi, :n_tp] = sj.tp_scalar
+        meta_f[bi, n_tp:n_tp + S] = sj.start
+        meta_f[bi, n_tp + S:] = sj.end
+    tables = (sj0.match_t, sj0.gapx_t, sj0.gapy_t)
+    bufs = [pp.to_device(a, device) for a in (
+        *tables, meta_i, meta_f, _flat(codes_l, np.int8), _flat(win_l, np.int16))]
+    return bufs, n_cy
+
+
+def symbol_problem(W: int, Dp: int, n_tp: int, S: int, mt, gx, gy, meta_i, meta_f,
+                   flat_c, flat_w):
+    """Device unpack of a staged symbol bucket into the window problem the
+    kernels take (E from ``symbol_emissions``, the DS_* scalars from the
+    window stream).  Returns (WindowProblem, cxp, cyp, real)."""
+    dev = meta_i.device
+    Lc = Dp + 2
+    fc = flat_c.to(torch.int32)
+    la = torch.arange(Lc, dtype=torch.int32, device=dev)[None, :]
+
+    def codes(off, ln):
+        n = meta_i[:, ln:ln + 1]
+        idx = meta_i[:, off:off + 1] + torch.minimum(la, n - 1)
+        return torch.where(la < n, fc[idx.long()], 4)
+
+    cxp = codes(MI_RANK_OFF, MI_RANK_LEN)
+    cyp = codes(MI_EV_OFF, MI_EV_LEN)
+    win = _unpack_win(meta_i, flat_w.to(torch.int32), W, Dp)
+    lY = meta_i[:, MI_EV_LEN] - 1
+    d_last = meta_i[:, MI_WIN_D] - 1
+    # code arrays this long never clip the emission offsets, so DS_XS is
+    # the x-window step exactly as pipeline.make_window_problem sets it
+    Lq = Dp + 2 * W + 128
+    ds, x0, _yr0 = _pack_ds(win, lY, W, Lq, Lq)
+    E = symbol_emissions(mt, gx, gy, cxp, cyp, win[:, 0], d_last, W)
+    prob = pp.WindowProblem(
+        E=E, diag_scalars=ds, d_last=d_last.contiguous(),
+        start=meta_f[:, n_tp:n_tp + S].contiguous(),
+        end=meta_f[:, n_tp + S:n_tp + 2 * S].contiguous(),
+        tp_scalar=meta_f[:, :n_tp].contiguous(),
+        x0=torch.cat([x0[:, :Dp], x0[:, Dp - 1:Dp]], 1) - W)   # _pack_ds pads x by W
+    return prob, cxp, cyp, meta_i[:, MI_REAL] > 0
+
+
+def run_symbol_jobs(staged: list[tuple[int, _SymJob, object]], threshold: float,
+                    *, device: torch.device, timing: dict | None = None
+                    ) -> dict[int, object]:
+    """The symbol lane's alignment (run_symbol_jobs, nh = 1): buckets of
+    ``symbol_buckets``, each unpacked, its E gathered, forward and stage-3
+    backward, and its pairs compacted on the device; all buckets dispatched,
+    then collected with one copy.  Returns {job_index: AlignedPairs}, None
+    for a job whose pairs overflowed (the caller's full-grid re-route)."""
+    import time as _time
+
+    t0 = _time.perf_counter()
+    pending = []
+    for plan, W, Dp, chunk in symbol_buckets(staged):
+        sj0 = staged[chunk[0]][1]
+        bufs, n_cy = stage_symbol_bucket(staged, chunk, device)
+        # nucleotide posteriors spread more mass off the diagonal than the
+        # signal lane's: room for 2 pairs a y position, the full-grid
+        # re-route catching the rare spill
+        Kg = _round_up(2 * n_cy + 512, 2048)
+        prob, _cxp, _cyp, real = symbol_problem(W, Dp, len(sj0.tp_scalar), len(sj0.start),
+                                                *bufs)
+        p, _totals = pp.run_window(plan, W, prob)
+        cnt, over, outq, outi = _extract_global(p, threshold, Kg, real)
+        pending.append((staged, chunk, torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
     if timing is not None:
         timing["host_pack"] = timing.get("host_pack", 0.0) + (_time.perf_counter() - t0)
     return collect_fast_jobs(pending, timing=timing)

@@ -36,6 +36,9 @@ _SIGNATURES = {
     "fb_backward_sm3": ([_P] * 9 + [_I] * 10 + [_I, _P], _I),
     # + exits, gacc, stats; ..., ds_rows, match state, G, the MAX_G group bitmasks
     "fb_backward_sm3_em": ([_P] * 12 + [_I] * 15 + [_I, _P], _I),
+    # + exits, gacc, stats; ..., ds_rows, G, the MAX_G group bitmasks, the
+    # channel count, a host array of its 64-bit edge-group masks
+    "fb_backward_sm3_pgroups": ([_P] * 12 + [_I] * 15 + [_P] + [_I, _P], _I),
 }
 
 
@@ -80,10 +83,12 @@ def build() -> Path:
     return out
 
 
-def bind(path: Path) -> ctypes.CDLL:
-    """Load a kernel library and declare every entry point's C types."""
+def bind(path: Path, names=None) -> ctypes.CDLL:
+    """Load a kernel library and declare the C types of its entry points
+    ``names`` (default: all of them)."""
     lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in _SIGNATURES.items():
+    for name in _SIGNATURES if names is None else names:
+        argtypes, restype = _SIGNATURES[name]
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

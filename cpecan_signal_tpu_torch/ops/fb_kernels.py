@@ -14,7 +14,8 @@ Inputs keep the JAX package's layouts (ops/pallas_fb.py) at nh = 1:
 (B, S), ``tp_scalar`` (B, n) f32.  Outputs drop the TPU halo and padding:
 E (B, Dp+2, 3, W), F (B, Dp, S, W), p (B, Dp, W), totals (B, Dp), and at
 stage 4 (the EM tallies) exits (B, Dp, G), gacc (B, G, W), stats (B, 128).
-With ``pstates`` (the echelon posteriors, stage 3) p is (B, Dp, P, W).
+With ``pstates`` (the echelon posteriors, stage 3) or ``pgroups`` (the
+per-edge-group posterior sums, stage 4) p is (B, Dp, P, W).
 
 ``LAUNCHES`` counts kernel launches per kernel (plain-version calls do not
 count), so a run can show which kernels its main path went through.
@@ -23,10 +24,11 @@ count), so a run can show which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ..models.state_machines import SRC_LOWER, SRC_MIDDLE
+from ..models.state_machines import SRC_MIDDLE
 from ..engine.plan import EDGE_COLS, MAX_EDGE_IDS
 
 NEG_INF = -1e30  # finite stand-in for log(0): keeps f32 arithmetic NaN-free
@@ -41,25 +43,40 @@ STATS_LANES = 128
 LIK_LANE = 64    # stats lane of the likelihood (lanes < 64: per-edge tallies)
 
 LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0, "backward_em": 0,
-            "backward_pstates": 0}
+            "backward_pstates": 0, "backward_pgroups": 0}
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
+# the logAdd lookup's 4 cubic pieces: d <= 1, <= 2.5, <= 4.5, above; each
+# ((a d + b) d + c) d + e with its coefficients rounded to f32
+_LADD_BOUNDS = (1.0, 2.5, 4.5)
+_LADD_PIECES = ((-0.009350833524763, 0.130659527668286, 0.498799810682272, 0.693203116424741),
+                (-0.014532321752540, 0.139942324101744, 0.495635523139337, 0.692140569840976),
+                (-0.004605031767994, 0.063427417320019, 0.695956496475118, 0.514272634594009),
+                (-0.000458661602210, 0.009695946122598, 0.930734667215156, 0.168037164329057))
+
+
+@functools.cache
+def _ladd_pieces(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_LADD_PIECES, dtype=torch.float32, device=device)
+
+
 def ladd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Reference logAdd (pairwiseAligner.c:238-255): lo + lookup(hi - lo)
     with lookup(d) ~= log(exp(d) + 1) as a 4-piece cubic, truncated to hi
-    for d >= 7.5 and saturated at NEG_INF (ops/pallas_fb._ladd)."""
+    for d >= 7.5 and saturated at NEG_INF (ops/pallas_fb._ladd).  Each cell
+    evaluates only its own piece (f32 coefficients, the same rounded
+    operations as evaluating all four and selecting)."""
     hi = torch.maximum(x, y)
     lo = torch.minimum(x, y)
     d = torch.clamp_max(hi - lo, _LOG_UNDERFLOW)
-    p1 = ((-0.009350833524763 * d + 0.130659527668286) * d + 0.498799810682272) * d + 0.693203116424741
-    p2 = ((-0.014532321752540 * d + 0.139942324101744) * d + 0.495635523139337) * d + 0.692140569840976
-    p3 = ((-0.004605031767994 * d + 0.063427417320019) * d + 0.695956496475118) * d + 0.514272634594009
-    p4 = ((-0.000458661602210 * d + 0.009695946122598) * d + 0.930734667215156) * d + 0.168037164329057
-    lut = torch.where(d <= 1.0, p1, torch.where(d <= 2.5, p2, torch.where(d <= 4.5, p3, p4)))
+    # each cell's piece, by comparisons against the pieces' bounds
+    piece = (d > _LADD_BOUNDS[0]).long() + (d > _LADD_BOUNDS[1]) + (d > _LADD_BOUNDS[2])
+    c = _ladd_pieces(d.device)[piece].unbind(-1)
+    lut = ((c[0] * d + c[1]) * d + c[2]) * d + c[3]
     out = torch.where(d >= _LOG_UNDERFLOW, hi, lo + lut)
     return torch.clamp_min(out, NEG_INF)
 
@@ -164,8 +181,25 @@ def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.T
     return F
 
 
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the lanes (the last axis, a multiple of 32) in the order of
+    the kernels' block reduction (csrc/fb_sm3.cu block_sum2): in each warp
+    of 32 lanes a butterfly that adds lane i + o to lane i for o = 16, 8,
+    4, 2, 1, then the warps' sums left to right."""
+    w = x.reshape(x.shape[:-1] + (-1, 32))
+    for o in (16, 8, 4, 2, 1):
+        w = w[..., :o] + w[..., o:2 * o]
+    out = w[..., 0, 0]
+    for i in range(1, w.shape[-2]):
+        out = out + w[..., i, 0]
+    return out
+
+
 def _lse_rows(v: torch.Tensor) -> torch.Tensor:
-    """logsumexp over (S, W) per problem: v (B, S, W) -> (B,)."""
+    """logsumexp over (S, W) per problem: v (B, S, W) -> (B,), summed as
+    the backward kernel sums it (per lane over the states, then
+    ``_block_sum``), so that a total, whose rounding every posterior of
+    its diagonal carries, is the kernel's to the bit."""
     S = v.shape[1]
     m_l = v[:, 0]
     for s in range(1, S):
@@ -174,7 +208,7 @@ def _lse_rows(v: torch.Tensor) -> torch.Tensor:
     sum_l = torch.exp(v[:, 0] - m)
     for s in range(1, S):
         sum_l = sum_l + torch.exp(v[:, s] - m)
-    out = m + torch.log(torch.clamp_min(sum_l.sum(dim=1, keepdim=True), 1e-38))
+    out = m + torch.log(torch.clamp_min(_block_sum(sum_l)[:, None], 1e-38))
     return torch.where(m <= NEG_INF, NEG_INF, out)[:, 0]
 
 
@@ -214,8 +248,28 @@ def pstate_mask(pstates, S: int, stages: int) -> int:
     return sum(1 << s for s in states)
 
 
+def pgroup_masks(pgroups, n_edges: int, stages: int) -> list[int]:
+    """``pgroups`` (1..MAX_STATES tuples of edge indices) -> one 64-bit edge
+    bitmask per posterior channel, bit e set when edge e belongs to it, as
+    the stage-4 kernel's edge-group mode takes them."""
+    if stages != 4:
+        raise ValueError("pgroups is a stage-4 (EM) posterior mode")
+    if not 1 <= len(pgroups) <= MAX_STATES:
+        raise ValueError(f"{len(pgroups)} edge groups; the kernel takes 1-{MAX_STATES}")
+    masks = []
+    for members in pgroups:
+        m = 0
+        for e in members:
+            if not 0 <= e < n_edges:
+                raise ValueError(f"edge group member {e} outside [0, {n_edges})")
+            m |= 1 << e
+        masks.append(m - (1 << 64) if m >= 1 << 63 else m)   # as a C long long
+    return masks
+
+
 def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                     tp_scalar, stages: int = 3, wgroups=None, pstates=None):
+                     tp_scalar, stages: int = 3, wgroups=None, pstates=None,
+                     pgroups=None):
     """Plain version of ``backward_sm3``.  At stage 4 the EM tallies sum in
     the JAX kernel's order: per diagonal the sum over lanes, then the sum
     over diagonals from the last to the first."""
@@ -227,12 +281,17 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
     mid_rows = [r for r in rows if r[0] == SRC_MIDDLE]
     lane = torch.arange(W, device=dev)
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=dev)
+    if pstates is not None and pgroups is not None:
+        raise ValueError("pstates and pgroups are two posterior modes; pass one")
     if pstates is not None:
         pstate_mask(pstates, S, stages)
         P = torch.empty((B, Dp, len(pstates), W), dtype=torch.float32, device=dev)
+    elif pgroups is not None:
+        pgroup_masks(pgroups, len(rows), stages)
+        P = torch.zeros((B, Dp, len(pgroups), W), dtype=torch.float32, device=dev)
     else:
         P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
-    Pc = P if pstates is not None else P[:, :, None]   # (B, Dp, P, W) view
+    Pc = P if P.dim() == 4 else P[:, :, None]   # (B, Dp, P, W) view
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
     if stages == 4:
         group_masks(wgroups, len(rows))          # the kernel's limits
@@ -248,16 +307,16 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         valid, xmy = _valid(dsd, d, d_last, lane)
         E1, E2 = E[:, d + 1], E[:, d + 2]
         sbL, sbM = dsd[:, DS_BL], dsd[:, DS_BM]
+        # the sources of each edge kind, shifted once: b[d+1] / E[d+1] by
+        # DS_BL (lower) and DS_BL - 1 (upper), b[d+2] / E[d+2] by DS_BM; the
+        # E channels shift with a 0.0 fill, so an edge's channel sum equals
+        # the shift of the channels' sum
+        bs = (_shift(b1, sbL), _shift(b2, sbM), _shift(b1, sbL - 1))
+        es = (_shift(E1, sbL, fill=0.0), _shift(E2, sbM, fill=0.0),
+              _shift(E1, sbL - 1, fill=0.0))
         acc = [neg[:, 0]] * S
         for src, frm, to, chans, scal in rows:
-            if src == SRC_LOWER:
-                sh, bN, EN = sbL, b1, E1
-            elif src == SRC_MIDDLE:
-                sh, bN, EN = sbM, b2, E2
-            else:
-                sh, bN, EN = sbL - 1, b1, E1
-            # summing the E channels before the shift is exact (0.0 fill)
-            val = _shift(bN[:, to], sh) + _shift(_esum(EN, chans), sh, fill=0.0)
+            val = bs[src][:, to] + _esum(es[src], chans)
             acc[frm] = ladd(acc[frm], _add_tp(val, tp_scalar, scal))
         cur = torch.stack(acc, dim=1)
         at_end = (d == d_last)[:, None, None]
@@ -267,25 +326,26 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         Fd = F[:, d]
         vmask = torch.where(valid, 0.0, NEG_INF)[:, None, :]
         t1 = _lse_rows(Fd + cur + vmask)
-        Fm1 = F[:, d - 1] if d >= 1 else neg
-        sM1 = diag_scalars[:, d + 1, 0, DS_FM]
+        Fm1 = _shift(F[:, d - 1] if d >= 1 else neg, diag_scalars[:, d + 1, 0, DS_FM])
         c = [neg[:, 0]] * S
         for _src, frm, to, chans, scal in mid_rows:
-            val = _shift(Fm1[:, frm], sM1) + _esum(E1, chans)
+            val = Fm1[:, frm] + _esum(E1, chans)
             c[to] = ladd(c[to], _add_tp(val, tp_scalar, scal))
         t2 = _lse_rows(torch.stack(c, dim=1) + b1)
         total = ladd(t1, t2) if 1 <= d < Dp - 1 else t1
         T[:, d] = total
 
         # one channel per listed state (the match state alone by default),
-        # masked to x > 0 and y > 0
+        # masked to x > 0 and y > 0; edge groups fill p in _em_tallies
         ok = valid & (xmy > -d) & (xmy < d)
-        for c, m in enumerate((match_state,) if pstates is None else pstates):
+        for c, m in enumerate(() if pgroups is not None else
+                              (match_state,) if pstates is None else pstates):
             p = torch.exp(torch.clamp_max(Fd[:, m] + cur[:, m] - total[:, None], 0.0))
             Pc[:, d, c] = torch.where(ok, p, 0.0)
         if stages == 4:
             _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, E[:, d],
-                        tp_scalar, d_last, exits, gacc, stats)
+                        tp_scalar, d_last, exits, gacc, stats,
+                        pgroups, Pc[:, d] if pgroups is not None else None)
         b2, b1 = b1, cur
     if stages == 4:
         return P, T, exits, gacc, stats
@@ -293,13 +353,15 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
 
 
 def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, Ed, tp_scalar,
-                d_last, exits, gacc, stats) -> None:
+                d_last, exits, gacc, stats, pgroups=None, p_d=None) -> None:
     """Stage-4 tallies of diagonal d (ops/pallas_fb.py:559-611), in place:
     per-edge posteriors pe = exp(min(F_src[frm] + b[to] + E + tp - total, 0))
     over the band cells of d >= 1, summed over lanes into the stats lanes;
     the window groups' sums join the (B, G, W) tally, which leaves lane W-1
     as exits[d] and shifts right by one lane where the x-window steps
-    (DS_XS[d] == 1).  The likelihood lane adds total[d] for 1 <= d <= d_last."""
+    (DS_XS[d] == 1).  The likelihood lane adds total[d] for 1 <= d <= d_last.
+    With ``pgroups``, channel c of p_d (B, P, W), zeroed by the caller, sums
+    the posteriors of the edges of group c in edge order (:579-599)."""
     B, S, W = cur.shape
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=cur.device)
     Fm1 = F[:, d - 1] if d >= 1 else neg
@@ -316,6 +378,9 @@ def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, Ed, tp_scalar,
         for g, members in enumerate(wgroups):
             if ei in members:
                 pg[g] = pg[g] + pe
+        for c, members in enumerate(pgroups or ()):
+            if ei in members:
+                p_d[:, c] += pe
     lik_ok = (d >= 1) & (d <= d_last)
     stats[:, LIK_LANE] += torch.where(lik_ok, total, 0.0)
     step = (dsd[:, DS_XS] == 1)[:, None]
@@ -436,7 +501,8 @@ def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tenso
 
 
 def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
-                 tp_scalar, stages: int = 3, wgroups=None, pstates=None):
+                 tp_scalar, stages: int = 3, wgroups=None, pstates=None,
+                 pgroups=None):
     """Fused backward pass.  Stage 3: the reverse recursion from b[d+1] /
     b[d+2] with E[d+1] / E[d+2] (E shifted with a 0.0 fill), the end vector
     injected at d_last, the per-diagonal total lse(F*b) ladd the
@@ -459,12 +525,21 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     mode of ops/pallas_fb.py:537-547: p becomes (B, Dp, P, W), channel c the
     posterior exp(min(F + b - total, 0)) of state pstates[c], masked as the
     match posterior (diagonalCalculationMultiPosteriorMatchProbs,
-    pairwiseAligner.c:797-839)."""
+    pairwiseAligner.c:797-839).
+
+    ``pgroups`` (stage 4 only; 1-8 tuples of edge indices, any of the 64
+    edges) is the mode of ops/pallas_fb.py:535, :579-599: p becomes (B, Dp,
+    P, W), channel c the sum, in edge order, of the stage-4 per-edge
+    posteriors of the edges of group pgroups[c] (0 off the band, at d = 0
+    and past d_last), in place of the match posterior; the nucleotide
+    E-step's groups are the edges into each state (cell_updateExpectations,
+    pairwiseAligner.c:407-424)."""
     if stages not in (3, 4):
         raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
     if not _on_cuda(edges, E, F, diag_scalars, d_last, end, tp_scalar):
         return backward_sm3_ref(edges, match_state, E, F, diag_scalars,
-                                d_last, end, tp_scalar, stages, wgroups, pstates)
+                                d_last, end, tp_scalar, stages, wgroups, pstates,
+                                pgroups)
     B, De, C, W = E.shape
     S = end.shape[1]
     Dp = F.shape[1]
@@ -481,7 +556,12 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     if not 0 <= match_state < S:
         raise ValueError(f"match_state {match_state} outside [0, {S})")
     dev = E.device
-    if pstates is None:
+    if pstates is not None and pgroups is not None:
+        raise ValueError("pstates and pgroups are two posterior modes; pass one")
+    if pgroups is not None:
+        pmasks = pgroup_masks(pgroups, edges.shape[0], stages)
+        P = torch.empty((B, Dp, len(pgroups), W), dtype=torch.float32, device=dev)
+    elif pstates is None:
         P = torch.empty((B, Dp, W), dtype=torch.float32, device=dev)
         pmask = 1 << match_state
     else:
@@ -500,6 +580,11 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     exits = torch.empty((B, Dp, G), dtype=torch.float32, device=dev)
     gacc = torch.empty((B, G, W), dtype=torch.float32, device=dev)
     stats = torch.empty((B, STATS_LANES), dtype=torch.float32, device=dev)
-    _launch("backward_em", "fb_backward_sm3_em", dev, *args, _p(exits), _p(gacc),
-            _p(stats), *dims, match_state, G, *masks)
+    if pgroups is None:
+        _launch("backward_em", "fb_backward_sm3_em", dev, *args, _p(exits), _p(gacc),
+                _p(stats), *dims, match_state, G, *masks)
+    else:
+        host_masks = (ctypes.c_longlong * len(pmasks))(*pmasks)
+        _launch("backward_pgroups", "fb_backward_sm3_pgroups", dev, *args, _p(exits),
+                _p(gacc), _p(stats), *dims, G, *masks, len(pmasks), host_masks)
     return P, T, exits, gacc, stats

@@ -60,6 +60,36 @@ def evolve_sequence(seq: str, rng: np.random.Generator, sub: float, indel: float
     return "".join(out)
 
 
+def evolve_with_truth(x: str, rng: np.random.Generator, sub: float, ins: float,
+                      dele: float, mean_len: float = 2.0) -> tuple[str, np.ndarray]:
+    """A sequence descended from ``x``, and its true alignment to ``x``.
+    Each base of x is deleted in runs that start at a base with probability
+    ``dele``, is followed by an inserted run with probability ``ins`` (run
+    lengths geometric with mean ``mean_len``), and when kept is substituted
+    by one of the other three bases with probability ``sub``.  Returns (y,
+    truth): truth (n, 2) int64 are the (x, y) index pairs of the bases y
+    keeps from x, in order."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    code = np.searchsorted(bases, np.frombuffer(x.encode(), dtype=np.uint8))
+    n = len(code)
+    cover = np.zeros(n + 1, dtype=np.int64)
+    starts = np.flatnonzero(rng.random(n) < dele)
+    ends = np.minimum(starts + rng.geometric(1.0 / mean_len, len(starts)), n)
+    np.add.at(cover, starts, 1)
+    np.add.at(cover, ends, -1)
+    keep = np.cumsum(cover[:n]) == 0
+    swap = keep & (rng.random(n) < sub)
+    code = np.where(swap, (code + rng.integers(1, 4, n)) % 4, code)
+    ins_len = np.where(rng.random(n) < ins, rng.geometric(1.0 / mean_len, n), 0)
+    emit = keep + ins_len
+    off = np.cumsum(emit) - emit          # y index of x base i's first emitted base
+    y = rng.integers(0, 4, int(emit.sum()))
+    kept = np.flatnonzero(keep)
+    y[off[kept]] = code[kept]
+    truth = np.stack([kept, off[kept]], axis=1)
+    return bases[y].tobytes().decode(), truth
+
+
 def simulate_events(pore: PoreModel, target: str, rng: np.random.Generator,
                     stay: float = 0.10, skip: float = 0.04, noise_sd: float = 0.6):
     """Events (n, 3) walking ``target``'s k-mers with stay/skip moves, and

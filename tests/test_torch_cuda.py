@@ -1,7 +1,9 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
-PyTorch version on the same CUDA tensors (at the threeState, vanilla and
-echelon plans), and the device-batched slice on the card against the CPU
-plain path (threeState and vanilla).
+PyTorch version on the same CUDA tensors (at the threeState, vanilla,
+echelon and fiveState plans, the last with the backward kernel's edge-group
+posterior channels), and the device-batched slice on the card against the
+CPU plain path (threeState, vanilla, and the nucleotide E-step, whose
+tallies must also agree bit for bit between two card runs).
 
 Every test needs a card and skips without one.  The file imports no jax, so
 on a machine with a card and without jax it runs as
@@ -310,3 +312,134 @@ def test_cuda_generic_slice_matches_cpu(cuda_device, tmp_path):
         common = set(dg) & set(dw)
         assert len(common) >= max(len(dg), len(dw), 1) - 1
         assert all(abs(dg[k] - dw[k]) < 1.2e-3 * 1e7 for k in common)
+
+
+def _symbol_problems(rng, n, W, expansion, device):
+    """(plan, WindowProblem) of n fiveState problems on random 300-base
+    pairs (5 % substitutions, 0.5 % indels), ragged ends mixed, staged by
+    the symbol lane (E gathered on the device)."""
+    from cpecan_signal_tpu_torch.core.window import smooth_band
+    from cpecan_signal_tpu_torch.engine import readpath
+
+    staged = []
+    for i, job in enumerate(_symbol_jobs(rng, 4 * n, expansion)):
+        wb = smooth_band(job.band, width_multiple=W)
+        if wb.W == W and len(staged) < n:
+            staged.append((i, *readpath.stage_symbol_job(job, wb)))
+    assert len(staged) == n
+    return _symbol_bucket(staged, W, device)
+
+
+def _symbol_bucket(staged, W, device):
+    """(plan, WindowProblem) of the staged symbol jobs as one bucket."""
+    from cpecan_signal_tpu_torch.engine import readpath
+
+    n = len(staged)
+    Dp = max(sj.wband.n_diagonals for _i, sj, _p in staged) + 3
+    bufs, _n = readpath.stage_symbol_bucket(staged, list(range(n)), device)
+    sj0 = staged[0][1]
+    prob, _cx, _cy, _real = readpath.symbol_problem(W, Dp, len(sj0.tp_scalar),
+                                                    len(sj0.start), *bufs)
+    return staged[0][2], prob
+
+
+def _bound_sm5(sx, sy):
+    from cpecan_signal_tpu_torch.models.state_machines import (bind_symbol_sequences,
+                                                                make_symbol_sm5)
+
+    sm = make_symbol_sm5()
+    bind_symbol_sequences(sm, sx, sy)
+    return sm
+
+
+def _symbol_jobs(rng, n, expansion):
+    from cpecan_signal_tpu_torch.em.discrete import collect_symbol_split_jobs
+
+    jobs = []
+    for i in range(n):
+        x = "".join(rng.choice(list("ACGT"), 300))
+        y, truth = syn.evolve_with_truth(x, rng, 0.05, 0.005, 0.005)
+        jobs += collect_symbol_split_jobs(_bound_sm5, x, y, truth[::10],
+                                          AlignmentParams(diagonal_expansion=expansion),
+                                          ragged_left=bool(i % 2), ragged_right=i % 4 < 2)
+    return jobs
+
+
+@pytest.mark.parametrize("W, expansion", [(64, 20), (128, 60)])
+def test_cuda_backward_pgroups_matches_plain(W, expansion, cuda_device):
+    """The stage-4 backward kernel with edge groups against its plain
+    version: the posterior channels to p's atol 1e-4, totals, exits and gacc
+    as without groups, stats to atol 1e-3 + rtol 1e-5; one channel per
+    to-state (the nucleotide E-step's) and eight single-edge channels."""
+    rng = np.random.default_rng(W + 3)
+    _check_pgroups(*_symbol_problems(rng, 5, W, expansion, cuda_device), W, pgroup_sets=2)
+
+
+@pytest.mark.parametrize("W, bases", [(640, (570, 630)), (1024, (960, 1000))])
+def test_cuda_backward_pgroups_wide_window_matches_plain(W, bases, cuda_device):
+    """The edge-group stage 4 on wide windows (two unanchored pairs of
+    570-630 and 960-1000 bases) as on the narrow ones: past 512 lanes, and
+    at 1024, the widest block the kernel's launch bound allows."""
+    from cpecan_signal_tpu_torch.em.discrete import collect_symbol_split_jobs
+    from cpecan_signal_tpu_torch.engine import readpath
+
+    rng = np.random.default_rng(W + 5)
+    staged = []
+    while len(staged) < 2:
+        x = "".join(rng.choice(list("ACGT"), int(rng.integers(*bases))))
+        y, _truth = syn.evolve_with_truth(x, rng, 0.05, 0.005, 0.005)
+        job, = collect_symbol_split_jobs(_bound_sm5, x, y, np.zeros((0, 2), dtype=np.int64),
+                                         AlignmentParams(), ragged_left=False,
+                                         ragged_right=bool(staged))
+        wb = smooth_band(job.band, width_multiple=128)
+        if wb.W == W:
+            staged.append((len(staged), *readpath.stage_symbol_job(job, wb)))
+    _check_pgroups(*_symbol_bucket(staged, W, cuda_device), W, pgroup_sets=1)
+
+
+def _check_pgroups(plan, b, W, pgroup_sets):
+    """The edge-group stage 4 of the bucket on the card against its plain
+    version; the first ``pgroup_sets`` of: one channel per to-state, eight
+    single-edge channels."""
+    from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
+
+    dev = b.E.device
+    edges = pp.to_device(edge_table(plan), dev)
+    F = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    groups = pp.sm3_wgroups(plan)
+    sets = (_to_state_pgroups(plan), tuple((e,) for e in (0, 2, 4, 5, 8, 9, 11, 12)))
+    for pgroups in sets[:pgroup_sets]:
+        before = dict(fk.LAUNCHES)
+        got = fk.backward_sm3(*args, stages=4, wgroups=groups, pgroups=pgroups)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["backward_pgroups"] == before["backward_pgroups"] + 1
+        assert fk.LAUNCHES["backward_em"] == before["backward_em"]
+        want = fk.backward_sm3_ref(*args, 4, groups, None, pgroups)
+        p, tot, exits, gacc, stats = got
+        assert p.shape == (b.E.shape[0], F.shape[1], len(pgroups), W)
+        torch.testing.assert_close(p, want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(tot, want[1], rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(exits, want[2], rtol=0, atol=1e-6)
+        torch.testing.assert_close(gacc, want[3], rtol=0, atol=1e-6)
+        torch.testing.assert_close(stats, want[4], rtol=1e-5, atol=1e-3)
+        assert float(p.sum()) > 0.25 * float(b.d_last.sum())
+
+
+def test_cuda_discrete_estep_matches_cpu(cuda_device):
+    """The nucleotide E-step (em/discrete.py) on the card against the CPU
+    plain path (trans and emiss rtol 1e-4 + atol 1e-5, likelihood 1e-5
+    relative), and two card runs equal bit for bit."""
+    from cpecan_signal_tpu_torch.em.discrete import discrete_expectations_batched
+
+    jobs = _symbol_jobs(np.random.default_rng(5), 6, 20)
+    before = fk.LAUNCHES["backward_pgroups"]
+    got = discrete_expectations_batched(jobs, device=cuda_device)
+    assert fk.LAUNCHES["backward_pgroups"] > before
+    again = discrete_expectations_batched(jobs, device=cuda_device)
+    want = discrete_expectations_batched(jobs, device=torch.device("cpu"))
+    for (t, e, lik), (t2, e2, lik2), (wt, we, wl) in zip(got, again, want):
+        assert np.array_equal(t, t2) and np.array_equal(e, e2) and lik == lik2
+        np.testing.assert_allclose(t, wt, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(e, we, rtol=1e-4, atol=1e-5)
+        assert abs(lik - wl) <= 1e-5 * abs(wl)

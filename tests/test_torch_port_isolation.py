@@ -166,9 +166,36 @@ def _case_hmm(seed):
     return out
 
 
+def _case_amap(seed):
+    from cpecan_signal_tpu.core import amap as jamap
+    from cpecan_signal_tpu.io.cigar import CigarRecord as JRec
+    from cpecan_signal_tpu_torch.core import amap as tamap
+    from cpecan_signal_tpu_torch.io.cigar import CigarRecord as TRec
+
+    rng = np.random.default_rng(seed)
+    lx, ly = 120, 110
+    pairs = np.stack([rng.integers(0, 10**7, 400), rng.integers(0, lx, 400),
+                      rng.integers(0, ly, 400)], axis=1)
+    sx = "".join(rng.choice(list("ACGT"), lx))
+    sy = "".join(rng.choice(list("ACGT"), ly))
+    out = []
+    for amap, Rec in ((jamap, JRec), (tamap, TRec)):
+        w = amap.reweight_aligned_pairs(pairs, lx, ly, 0.5)
+        chain = amap.filter_pairs_to_ordered(w)
+        ops = amap.pairs_to_cigar_ops(chain, lx, ly)
+        rec = Rec("a", 0, lx, True, "b", ly, 0, False, 1.0, ops)
+        split = amap.split_long_indels(rec, 3)
+        out.append([w, chain, np.array([f"{o}{n}" for o, n in ops]),
+                    np.array([r.to_line() for r in split]),
+                    np.array([amap.score_by_identity(sx, sy, chain, g) for g in (False, True)]
+                             + [amap.score_by_posterior(chain, lx, ly, g)
+                                for g in (False, True)])])
+    return out
+
+
 @pytest.mark.parametrize("case", ["make_signal_sm3", "band_construct+smooth_band",
                                   "load_npread", "sequence_kmer_ranks",
-                                  "ContinuousPairHmm.to_sm3_params"])
+                                  "ContinuousPairHmm.to_sm3_params", "amap"])
 def test_copied_host_module_matches_jax(case, tmp_path):
     """The port's copy of a host module gives exactly what the JAX package's
     module gives, on the same numpy-seeded input."""
@@ -179,6 +206,7 @@ def test_copied_host_module_matches_jax(case, tmp_path):
         "load_npread": lambda: _case_npread(seed, tmp_path),
         "sequence_kmer_ranks": lambda: _case_kmers(seed),
         "ContinuousPairHmm.to_sm3_params": lambda: _case_hmm(seed),
+        "amap": lambda: _case_amap(seed),
     }[case]()
     assert len(want) == len(got)
     for w, g in zip(want, got):
@@ -202,7 +230,7 @@ def test_copies_name_their_source():
             if f"Copied from ``cpecan_signal_tpu/{rel}``" in doc:
                 copies.append(rel)
                 assert os.path.exists(os.path.join(jax_root, rel)), rel
-    assert len(copies) == 14, copies
+    assert len(copies) == 15, copies
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):

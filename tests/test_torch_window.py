@@ -124,8 +124,15 @@ def test_run_window_matches_pallas(window_case):
     np.testing.assert_allclose(tot.numpy()[:, :D], c["tot"][:, :D], atol=F_ATOL, rtol=F_RTOL)
     # about one aligned event per two diagonals carries the posterior mass
     assert float(p.sum()) > 0.25 * D
-    with pytest.raises(ValueError, match="stage 3"):
-        tpp.run_window(c["plan"], W, c["batch"], stages=4)
+    # stage 4 (the EM tallies, one window group of edge 0) runs the same
+    # recursion: the same totals, and the same match posteriors
+    p4, tot4, _exits, _gacc, _stats = tpp.run_window(c["plan"], W, c["batch"], stages=4,
+                                                     wgroups=((0,),))
+    assert torch.equal(tot4, tot)
+    if c["pstates"] is None:
+        assert torch.equal(p4, p)
+    with pytest.raises(ValueError, match="stage 3 or 4"):
+        tpp.run_window(c["plan"], W, c["batch"], stages=2)
 
 
 def test_echelon_pstates_channels():

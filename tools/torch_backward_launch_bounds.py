@@ -7,13 +7,16 @@ against an earlier version of its source, on one CUDA card.
 csrc/fb_sm3.cu instantiates backward_kernel under __launch_bounds__
 (MAX_THREADS): stage 4 at 1024 (64 registers a thread, so that the one
 instance runs every window width up to 1024 lanes), stage 3 at
-NARROW_THREADS for windows that fit it and at 1024 past them.  This script
+NARROW_THREADS and stage 4 with edge groups at PGROUPS_THREADS for windows
+that fit them, and at 1024 past them.  This script
 builds three libraries from the same source: as it is ("as_built"), with
 every instance bound to 1024 ("bound_1024") and with the bound removed
 ("unbounded": the register allocator picks its own count).  It prints
 ptxas's registers and spills of each, and times stage 3 and stage 4 of each
 on the same CUDA tensors at W = 128, Dp = 4096, B = 64 (chip_smoke.py's
-kernel problems).  Each round times the builds in one order and then in the
+kernel problems), and stage 4 with edge groups ("pgroups": the nucleotide
+E-step's one channel per to-state) on chip_smoke.py's fiveState problems
+of the same shape, in every build whose source has that entry point.  Each round times the builds in one order and then in the
 reverse order, each time the mean of ``--reps`` launches by CUDA events.
 The last line is a JSON object: per stage and build the median ms and the
 spread (max - min) / median over its times, and each build's median over
@@ -25,7 +28,8 @@ of chip_smoke.py), else it exits nonzero.
 cpecan_signal_tpu_torch/csrc/fb_sm3.cu (an unpacked earlier commit), so the
 two versions are timed in one process on one card; a parent whose stage-3
 entry point takes the match state where this one takes the posterior
-state mask gets the state.  ``--builds`` names the builds to time.
+state mask gets the state, and only the entry points a parent's source
+defines are bound.  ``--builds`` names the builds to time.
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ def build_variants(tmp: Path, names, parent: Path | None = None) -> dict:
         for line in chip_smoke.ptxas_lines(out):
             if "backward" in line:
                 print(f"ptxas {name}: {line}", flush=True)
-        libs[name] = _build.bind(so)
+        # an earlier source may lack the entry points added since
+        libs[name] = _build.bind(so, [n for n in _build._SIGNATURES if n in texts[name]])
     if "parent" in libs and "int pmask" not in texts["parent"]:
         libs["parent"] = MatchStateLib(libs["parent"])
     return libs
@@ -127,6 +132,7 @@ def main() -> int:
         return 1
     import chip_smoke
     from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
     from cpecan_signal_tpu_torch.engine import pipeline as pp
     from cpecan_signal_tpu_torch.engine.plan import edge_table
     from cpecan_signal_tpu_torch.ops import _build
@@ -148,6 +154,17 @@ def main() -> int:
     runs = {3: lambda: fk.backward_sm3(edges, plan.match_state, E, F, *bargs),
             4: lambda: fk.backward_sm3(edges, plan.match_state, E, F, *bargs,
                                        stages=4, wgroups=groups)}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan5, b5 = chip_smoke.five_problems(chip_smoke.nucleotide_set(tmp), W, DP,
+                                             chip_smoke.FIVE_SHAPES[-1][2], B, device)
+    args5 = (pp.to_device(edge_table(plan5), device), plan5.match_state, b5.E)
+    F5 = fk.forward_sm3(args5[0], b5.E, b5.diag_scalars, b5.d_last, b5.start, b5.tp_scalar)
+    runs["4_pgroups"] = lambda: fk.backward_sm3(
+        *args5, F5, b5.diag_scalars, b5.d_last, b5.end, b5.tp_scalar, stages=4,
+        wgroups=pp.sm3_wgroups(plan5), pgroups=_to_state_pgroups(plan5))
+    stages_of = {name: [st for st in runs if st != "4_pgroups"
+                        or hasattr(libs[name], "fb_backward_sm3_pgroups")]
+                 for name in builds}
 
     def use(name):   # the wrappers launch through _build.load_library()
         _build.load_library = lambda: libs[name]
@@ -155,25 +172,25 @@ def main() -> int:
     outs = {}
     for name in builds:
         use(name)
-        outs[name] = {st: run() for st, run in runs.items()}
+        outs[name] = {st: runs[st]() for st in stages_of[name]}
     torch.cuda.synchronize()
     for name in builds[1:]:
-        for st in runs:
+        for st in stages_of[name]:
             a, u = outs["as_built"][st], outs[name][st]
             same = all(torch.equal(x, y) for x, y in zip(a[:4], u[:4]))
-            if st == 4:
+            if st != 3:
                 same = same and torch.allclose(a[4], u[4], atol=chip_smoke.STATS_ATOL,
                                                rtol=chip_smoke.STATS_RTOL)
             if not same:
                 raise AssertionError(f"stage {st}: the {name} build's outputs differ")
     del outs
 
-    times = {st: {name: [] for name in builds} for st in runs}
+    times = {st: {name: [] for name in builds if st in stages_of[name]} for st in runs}
     for r in range(args.rounds):
         for name in builds + builds[::-1]:
             use(name)
-            for st, run in runs.items():
-                times[st][name].append(chip_smoke.cuda_ms(run, args.reps))
+            for st in stages_of[name]:
+                times[st][name].append(chip_smoke.cuda_ms(runs[st], args.reps))
         print(f"round {r}: " + "; ".join(
             f"stage {st} {name} " + ", ".join(f"{t:.3f}" for t in v[name][-2:])
             for st, v in times.items() for name in v), flush=True)
@@ -184,8 +201,8 @@ def main() -> int:
         for name, ts in v.items():
             result[f"stage{st}_{name}_ms"] = med[name]
             result[f"stage{st}_{name}_spread"] = (max(ts) - min(ts)) / med[name]
-        base = "unbounded" if "unbounded" in med else builds[-1]
-        for name in builds:
+        base = "unbounded" if "unbounded" in med else list(med)[-1]
+        for name in med:
             if name != base:
                 result[f"stage{st}_{name}_over_{base}"] = med[name] / med[base]
     print(json.dumps(result))

@@ -4,9 +4,9 @@
 
 Builds the CUDA kernels of cpecan_signal_tpu_torch from csrc/ (and prints
 ptxas's registers and spills for each), holds each kernel against its plain
-PyTorch version on the card (narrow windows, and a 1024-lane one that takes
-the backward kernel's wide instance) at the threeState, vanilla and echelon
-plans, then drives the port's paths on 50 synthetic two-strand reads:
+PyTorch version on the card (narrow windows, and 1024-lane ones: a
+1024-thread recursion block) at the threeState, vanilla, echelon and
+fiveState plans, then drives the port's paths on 50 synthetic two-strand reads:
 
   * alignment: cli/signal_align -s (emissions, forward, stage-3 backward),
     checked against the CPU plain path and timed;
@@ -82,7 +82,7 @@ LIK_DROP = 1e-5               # largest relative fall of the EM likelihood
 PAIR_TOL, PROB_TOL = 1, 1.2e-3
 SEED = 20261016
 EM_ITERATIONS = 3
-WIDE_W = 1024   # past the backward kernel's NARROW_THREADS (csrc/fb_sm3.cu)
+WIDE_W = 1024   # the widest window: a recursion block of 1024 threads (csrc/fb_sm3.cu)
 # threeState kernel checks against the plain versions (W, Dp), B = 64; the
 # stage-4 backward at every shape but (64, 4096).  The kernels line carries
 # the numbers of LINE_SHAPE (backward_pstates: echelon at W = 128, Dp = 1024)
@@ -117,8 +117,8 @@ NUC_JC_START = 0.3
 # W = 64 check runs at Dp = 1024 and the small records are 1 kb, so that the
 # plain versions, which set the pace of these checks, keep the run within
 # its time limit on a slow host.  FIVE_WIDE (W, Dp, expansion, B): narrow
-# bands in 1024-lane windows, the edge-group backward's 1024-thread
-# instance (past PGROUPS_THREADS, csrc/fb_sm3.cu)
+# bands in 1024-lane windows (1024-thread recursion blocks, 5 epilogue
+# warps a block)
 FIVE_SHAPES = ((64, 1024, 20), (128, 4096, 60))
 FIVE_WIDE = (WIDE_W, 512, 20, 2)
 
@@ -310,10 +310,9 @@ def wide_problems(pore, B: int, rng, device):
 
 
 def phase_wide(pore, device, rng, stats) -> None:
-    """Each kernel against its plain version on WIDE_W-lane windows, where
-    stage 3 takes the backward kernel's 1024-thread instance (past
-    NARROW_THREADS of csrc/fb_sm3.cu) and stage 4 its only one.  Adds the
-    errors to ``stats``."""
+    """Each kernel against its plain version on WIDE_W-lane windows (the
+    recursions' 1024-thread blocks, stages 3 and 4).  Adds the errors to
+    ``stats``."""
     import torch
 
     from cpecan_signal_tpu_torch.engine import pipeline as pp
@@ -715,8 +714,9 @@ def phase_generic_kernels(pore, device, rng, stats) -> None:
             del F, P, T, b
             torch.cuda.empty_cache()
 
-    # echelon on a 1024-lane window: the backward kernel's 1024-thread
-    # instance with 3 x 7 carry rows of 1026 floats (86 KB of shared memory)
+    # echelon on a 1024-lane window: 3 x 7 carry rows of 1026 floats (86 KB
+    # of shared memory) leave no room for 3 E rows of 17 channels, so the
+    # recursions take their unstaged route (csrc/fb_sm3.cu ring_depth)
     plan, b = generic_problems(pore, "echelon", WIDE_W, 360, 2, rng, device, n_distinct=2,
                                width_multiple=WIDE_W, bases=(150, 170))
     edges = pp.to_device(edge_table(plan), device)

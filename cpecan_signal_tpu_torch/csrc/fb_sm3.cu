@@ -2,7 +2,7 @@
 // written for Hopper (sm_90a) with a plain C interface (bound from Python with
 // ctypes, see ops/_build.py and ops/fb_kernels.py).  The recursions are
 // generic over a machine's edge table (threeState, fourState, vanilla,
-// echelon); the emissions kernel is threeState's.
+// echelon, fiveState); the emissions kernel is threeState's.
 //
 // Layouts (all row-major, contiguous; B problems, Dp diagonals, W window
 // lanes, S states, C emission channels):
@@ -21,14 +21,51 @@
 //   gacc          (B, G, W)       stage 4: window-group tallies left at d = 0
 //   stats         (B, 128)        stage 4: lane e = edge-e posterior sum,
 //                                 lane LIK_LANE = likelihood
+//   work          backward scratch (backward_work_floats): b (B, Dp, S, W),
+//                 at stage 4 then the window-group sums (B, Dp, G, W) and the
+//                 per-edge lane sums (B, Dp, n_edges)
 //
 // Every float operation that the reference logAdd and the Gaussian pack do
 // as separate multiply and add is written with __fmul_rn / __fadd_rn, which
 // nvcc never contracts into an FMA, so the card rounds exactly like the
 // plain PyTorch versions on the CPU.  expf / logf are the accurate (not the
 // fast-math) versions; the file must not be built with --use_fast_math.
+//
+// Design (H100): a diagonal needs the two before it, so each problem's
+// recursion is a serial chain of Dp steps run by one block.  What limits it
+// is the time of one step, not bytes or flops: PR 4's kernels took 3.1 us a
+// diagonal (forward) and 6.0 us (stage-3 backward) at the threeState plan,
+// mostly device-memory loads waited for one edge after the other, and the
+// backward's two block-wide reductions.  The kernels keep only the
+// recursion itself on that chain:
+//   * each diagonal's E row and diagonal-scalar row are staged in a shared
+//     ring K rows ahead by cp.async (ring_depth), the per-edge constants
+//     (source, states, channel offsets, the summed scalar transition term)
+//     are read once into shared memory, and a step reads only shared memory
+//     and registers;
+//   * edges are taken in rounds, round r holding the r-th edge into each
+//     state (table order within a state, so every sum keeps its order), and
+//     a round is straight-line code over a compile-time state count with a
+//     branch-free logAdd, so the states' logAdd chains overlap;
+//   * the backward's totals, posteriors and stage-4 tallies need the whole
+//     diagonal; they run after the recursion in a kernel with one warp per
+//     (problem, diagonal), so they cost no barrier and no step of the chain.
+// Measured on an H100 80GB HBM3 at 700.00 W (tools/torch_recursion_ab.py,
+// W = 128, Dp = 4096, B = 64, against PR 4's build in one call): forward
+// 2.944 ms (0.72 us a diagonal; PR 4 12.728), stage-3 backward 4.211
+// (24.328), stage 4 6.131 (35.831), stage 4 with pgroups at fiveState
+// 11.709 (63.873), echelon pstates at Dp = 1024 5.437 (26.240); every
+// output equal to PR 4's bit for bit (stats within chip_smoke.py's stage-4
+// tolerance).  More in ../../PERF.md (Findings, PR 5).
+//
+// Launch-bound instances and ptxas's registers (the same build): the
+// recursion <false> and <true> under RECURSION_THREADS (64 registers, no
+// spill); the epilogue <false,false,false> 56, <false,true,false> 48,
+// <true,false,false> 64 and <true,false,true> 64 with 8 bytes spilled,
+// under EPI_THREADS; the carry kernel 60 under RECURSION_THREADS.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define NEG_INF (-1e30f)
 #define LOG_UNDERFLOW 7.5f
@@ -41,12 +78,25 @@
 #define STATS_LANES 128
 #define LIK_LANE 64
 
+// The recursion kernels' launch bound and window lanes per thread (a block
+// of W / LANES_PER_THREAD threads per problem), the deepest E ring, and the
+// shared memory a block may use (227 KB, less the static arrays' room).
+#define RECURSION_THREADS 1024
+#define LANES_PER_THREAD 1
+#define RING_MAX 12
+#define SMEM_LIMIT (232448 - 4096)
+// The backward epilogue: at most EPI_WARPS warps (diagonals) a block.
+#define EPI_WARPS 8
+#define EPI_THREADS (32 * EPI_WARPS)
+// The added scalar term of a padding edge: its value lies below NEG_INF, so
+// that its logAdd returns the running sum unchanged.
+#define PAD_TERM (-3e38f)
+
 enum { DS_FL = 0, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS };
 
 // The posterior channels of the pgroups mode: channel c sums the per-edge
 // posteriors of the edges whose bits are set in m[c] (bit e = edge e, all
-// MAX_EDGES edges).  Passed by value, so it costs the other instances no
-// register and no load.
+// MAX_EDGES edges).  Passed by value.
 struct ChannelGroups {
   unsigned long long m[MAX_S];
 };
@@ -56,111 +106,134 @@ enum { SRC_LOWER = 0, SRC_MIDDLE = 1, SRC_UPPER = 2 };
 // Shared device helpers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float horner3(float d, double a, double b, double c,
-                                         double e) {
-  // ((a*d + b)*d + c)*d + e; the constants round decimal -> f64 -> f32 like
-  // the Python float constants of the plain versions
-  float v = __fadd_rn(__fmul_rn((float)a, d), (float)b);
-  v = __fadd_rn(__fmul_rn(v, d), (float)c);
-  return __fadd_rn(__fmul_rn(v, d), (float)e);
-}
-
 // Reference logAdd (pairwiseAligner.c:238-255), as ops/pallas_fb._ladd:
 // hi + log1p(exp(lo - hi)) by a 4-piece cubic in d = hi - lo, truncated to
-// hi for d >= 7.5, saturated at NEG_INF.
+// hi for d >= 7.5, saturated at NEG_INF.  Branch-free: the piece's four
+// coefficients are selected by comparisons and one Horner chain runs, the
+// same rounded operations as evaluating the piece alone (the constants round
+// decimal -> f64 -> f32 like the plain version's).
 __device__ __forceinline__ float ladd(float x, float y) {
-  float hi = fmaxf(x, y);
-  float lo = fminf(x, y);
-  float d = fminf(__fsub_rn(hi, lo), LOG_UNDERFLOW);
-  float lut;
-  if (d <= 1.0f)
-    lut = horner3(d, -0.009350833524763, 0.130659527668286, 0.498799810682272,
-                  0.693203116424741);
-  else if (d <= 2.5f)
-    lut = horner3(d, -0.014532321752540, 0.139942324101744, 0.495635523139337,
-                  0.692140569840976);
-  else if (d <= 4.5f)
-    lut = horner3(d, -0.004605031767994, 0.063427417320019, 0.695956496475118,
-                  0.514272634594009);
-  else
-    lut = horner3(d, -0.000458661602210, 0.009695946122598, 0.930734667215156,
-                  0.168037164329057);
-  float out = (d >= LOG_UNDERFLOW) ? hi : __fadd_rn(lo, lut);
+  const float hi = fmaxf(x, y);
+  const float lo = fminf(x, y);
+  const float d = fminf(__fsub_rn(hi, lo), LOG_UNDERFLOW);
+  const bool p1 = d <= 1.0f, p2 = d <= 2.5f, p3 = d <= 4.5f;
+  const float a = p1 ? (float)-0.009350833524763
+                     : p2 ? (float)-0.014532321752540
+                          : p3 ? (float)-0.004605031767994 : (float)-0.000458661602210;
+  const float b = p1 ? (float)0.130659527668286
+                     : p2 ? (float)0.139942324101744
+                          : p3 ? (float)0.063427417320019 : (float)0.009695946122598;
+  const float c = p1 ? (float)0.498799810682272
+                     : p2 ? (float)0.495635523139337
+                          : p3 ? (float)0.695956496475118 : (float)0.930734667215156;
+  const float e = p1 ? (float)0.693203116424741
+                     : p2 ? (float)0.692140569840976
+                          : p3 ? (float)0.514272634594009 : (float)0.168037164329057;
+  float v = __fadd_rn(__fmul_rn(a, d), b);
+  v = __fadd_rn(__fmul_rn(v, d), c);
+  const float lut = __fadd_rn(__fmul_rn(v, d), e);
+  // out = d >= 7.5 ? hi : lo + lut, as a selp: written as ?: the compiler
+  // branches around the Horner chain, which splits the edge loop into
+  // blocks that cannot overlap
+  float out;
+  asm("{\n\t.reg .pred p;\n\tsetp.ge.f32 p, %1, 0f40F00000;\n\t"
+      "selp.f32 %0, %2, %3, p;\n\t}"
+      : "=f"(out)
+      : "f"(d), "f"(hi), "f"(__fadd_rn(lo, lut)));
   return fmaxf(out, NEG_INF);
 }
+static_assert(LOG_UNDERFLOW == 7.5f, "ladd's selp compares with 7.5 (0f40F00000)");
 
 // out[j] = v[j + s] selects on the sign of s only (ops/pallas_fb._shift)
 __device__ __forceinline__ int sgn(int s) { return (s > 0) - (s < 0); }
 
-// Sum of an edge's E channels at lane j: emission class, then per-cell
-// transition channels, left to right (ops/pallas_fb._esum).
-__device__ __forceinline__ float esum(const float* Ed, const int* er, int W,
-                                      int j) {
-  float v = Ed[er[3] * W + j];
+__device__ __forceinline__ float lse_finish(float m, float s) {
+  return (m <= NEG_INF) ? NEG_INF : __fadd_rn(m, logf(fmaxf(s, 1e-38f)));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int k = 0; k < MAX_IDS; ++k) {
-    int c = er[4 + MAX_IDS + k];
-    if (c >= 0) v = __fadd_rn(v, Ed[c * W + j]);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The butterfly of the plain versions' _block_sum within 32 lanes: lane i
+// adds lane i ^ o for o = 16, 8, 4, 2, 1; every lane ends with the sum.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One edge in shared memory, two 16-byte words: x = (src | frm << 4 |
+// to << 8 | has_t << 12 | carry offset << 16, the summed scalar term t as
+// bits, channel offsets 0, 1), y = (channel offsets 2, 3, 4, 0).  A channel
+// offset is channel * W, or -1 past the edge's channels; the carry offset is
+// the recursion's source state (forward: frm, backward: to) * (W + 2) + 1.
+struct EdgeRec {
+  int4 x, y;
+};
+__device__ __forceinline__ int rec_src(const EdgeRec& r) { return r.x.x & 15; }
+__device__ __forceinline__ int rec_frm(const EdgeRec& r) { return (r.x.x >> 4) & 15; }
+__device__ __forceinline__ int rec_to(const EdgeRec& r) { return (r.x.x >> 8) & 15; }
+__device__ __forceinline__ int rec_off(const EdgeRec& r) { return r.x.x >> 16; }
+
+// Sum of an edge's E channels at lane j: emission class, then per-cell
+// transition channels, left to right (ops/pallas_fb._esum).  NCH (1..5)
+// bounds the channels of any edge of the table; the sum is branch-free (a
+// missing channel loads channel 0 and is not added), so that the loads of
+// several edges can be in flight together.
+template <int NCH>
+__device__ __forceinline__ float rec_esum(const float* Ed, const EdgeRec& r, int j) {
+  const int ch[4] = {r.x.w, r.y.x, r.y.y, r.y.z};
+  float v = Ed[r.x.z + j];
+#pragma unroll
+  for (int k = 0; k < NCH - 1; ++k) {
+    const float x = Ed[max(ch[k], 0) + j];
+    v = ch[k] >= 0 ? __fadd_rn(v, x) : v;
   }
   return v;
 }
 
-// val + (sum of the edge's scalar transition terms); an edge without scalar
-// terms adds nothing (ops/pallas_fb tp_of returns 0.0).
-__device__ __forceinline__ float add_tp(float val, const float* tp,
-                                        const int* er) {
-  if (er[4] < 0) return val;
-  float t = tp[er[4]];
-#pragma unroll
-  for (int k = 1; k < MAX_IDS; ++k)
-    if (er[4 + k] >= 0) t = __fadd_rn(t, tp[er[4 + k]]);
-  return __fadd_rn(val, t);
+// val + the edge's scalar transition terms, summed once per problem left to
+// right (ops/pallas_fb tp_of; an edge without scalar terms adds nothing)
+__device__ __forceinline__ float rec_add_t(float val, const EdgeRec& r) {
+  return ((r.x.x >> 12) & 1) ? __fadd_rn(val, __int_as_float(r.x.y)) : val;
 }
 
-__device__ __forceinline__ void block_max2(float& a, float& b, float* ra,
-                                           float* rb) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+// Edge rows -> records, and record MAX_EDGES the padding edge; every thread
+// of the block takes a share.  by_to: the carry offset is the to-state's
+// (the backward recursion), else the from-state's.
+__device__ void load_edges(const int* __restrict__ edges, const float* __restrict__ tp,
+                           int n_edges, int W, bool by_to, EdgeRec* recs) {
+  for (int e = threadIdx.x; e <= n_edges; e += blockDim.x) {
+    EdgeRec r;
+    if (e == n_edges) {
+      r.x = make_int4(SRC_LOWER | 1 << 12 | 1 << 16, __float_as_int(PAD_TERM), 0, -1);
+      r.y = make_int4(-1, -1, -1, 0);
+      recs[MAX_EDGES] = r;
+      continue;
+    }
+    const int* er = edges + e * EDGE_COLS;
+    float t = 0.0f;
+    const bool has_t = er[4] >= 0;
+    if (has_t) {
+      t = tp[er[4]];
+      for (int k = 1; k < MAX_IDS; ++k)
+        if (er[4 + k] >= 0) t = __fadd_rn(t, tp[er[4 + k]]);
+    }
+    int ch[1 + MAX_IDS];
+    ch[0] = er[3] * W;
+    for (int k = 0; k < MAX_IDS; ++k) {
+      const int c = er[4 + MAX_IDS + k];
+      ch[1 + k] = c >= 0 ? c * W : -1;
+    }
+    const int off = (by_to ? er[2] : er[1]) * (W + 2) + 1;
+    r.x = make_int4(er[0] | er[1] << 4 | er[2] << 8 | (has_t ? 1 << 12 : 0) | off << 16,
+                    __float_as_int(t), ch[0], ch[1]);
+    r.y = make_int4(ch[2], ch[3], ch[4], 0);
+    recs[e] = r;
   }
-  int w = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    ra[w] = a;
-    rb[w] = b;
-  }
-  __syncthreads();
-  a = ra[0];
-  b = rb[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
-    a = fmaxf(a, ra[i]);
-    b = fmaxf(b, rb[i]);
-  }
-}
-
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* ra,
-                                           float* rb) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
-    b = __fadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
-  }
-  int w = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    ra[w] = a;
-    rb[w] = b;
-  }
-  __syncthreads();
-  a = ra[0];
-  b = rb[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
-    a = __fadd_rn(a, ra[i]);
-    b = __fadd_rn(b, rb[i]);
-  }
-}
-
-__device__ __forceinline__ float lse_finish(float m, float s) {
-  return (m <= NEG_INF) ? NEG_INF : __fadd_rn(m, logf(fmaxf(s, 1e-38f)));
 }
 
 // ---------------------------------------------------------------------------
@@ -216,435 +289,763 @@ __global__ void emissions_kernel(const int* __restrict__ x0,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 2: forward
+// Kernel 2: the recursions (forward F, backward b)
 // ---------------------------------------------------------------------------
-// Replaces cpecan_signal_tpu/ops/pallas_fb.py:forward_sm3 (_forward_kernel).
-// Bound: latency along the serial chain of anti-diagonals, not bytes or
-// flops: diagonal d needs diagonals d-1 and d-2, and each step is a handful
-// of dependent logAdds per lane.  Design: one block per problem, one thread
-// per window lane, and the whole diagonal loop inside one launch, so no
-// launch or device-memory round trip sits between two diagonals.  The
-// carries F[d-1], F[d-2] live in three rotating shared-memory rows (one
-// NEG_INF halo lane at each end makes the +-1 lane shift a plain offset), so
-// there is one __syncthreads per diagonal.  E rows are read coalesced along
-// the lanes.  Problems run on separate SMs; the card fills once a bucket has
-// about as many problems as SMs.
-__global__ void forward_kernel(const float* __restrict__ E,
-                               const int* __restrict__ ds,
-                               const int* __restrict__ d_last,
-                               const float* __restrict__ start,
-                               const float* __restrict__ tps,
-                               const int* __restrict__ edges,
-                               float* __restrict__ F, int Dp, int De, int C,
-                               int S, int W, int n_tp, int n_edges,
-                               int ds_rows) {
-  extern __shared__ float carry[];  // 3 rows x S x (W + 2)
-  __shared__ int sh_edges[MAX_EDGES * EDGE_COLS];
+// Replaces cpecan_signal_tpu/ops/pallas_fb.py:forward_sm3 (_forward_kernel)
+// and the recursion of backward_sm3 (_backward_kernel).  Bound: the latency
+// of the serial chain of anti-diagonals: diagonal d needs d - 1 and d - 2
+// (the backward d + 1 and d + 2), at a few dependent logAdds a lane.
+//
+// Design: one block per problem, W / LANES_PER_THREAD threads (thread t
+// holds lanes t, t + blockDim, ...), the whole diagonal loop in one launch.
+// The carries live in three rotating shared rows of S x (W + 2) floats (a
+// NEG_INF halo lane at each end makes the +-1 lane shift a plain offset);
+// one __syncthreads a diagonal publishes the new row.  A step's inputs come
+// from shared memory only:
+//   * the E rows and diagonal-scalar rows stream through a ring of K slots
+//     filled by cp.async K - 2 steps ahead of use; the wait for the next
+//     step's group sits just before the diagonal's barrier, which publishes
+//     the copies with the carry row.  Step i takes E row i (backward: rows
+//     d + 1 and d + 2, the new one d + 1 = d_top + 1 - i) and scalar row d.
+//     K comes from ring_depth (as large as RING_MAX and the 227 KB allow);
+//     where not even 3 E rows fit beside the carry rows (echelon from
+//     W = 800: 17 channels, 7 states) K = 0 and the step reads E and the
+//     scalar row from device memory (an instance of its own, so that the
+//     staged one reads shared memory with shared loads).
+//   * each edge's constants sit in shared records (load_edges), its scalar
+//     transition terms summed once per problem (the same adds, in the same
+//     order, as summing them on every cell).
+//   * rounds: the slot table lists, for round r and state s, the r-th edge
+//     into s (forward; backward: out of s) in table order, or the padding
+//     edge, whose logAdd is the identity.  A round is straight-line code
+//     over NS >= S states (3, 5 or 8, a compile-time count chosen once per
+//     launch), so the logAdds of different states overlap, and the states'
+//     values stay in registers until the step's stores.  fiveState pads
+//     13 edges to 5 rounds x 5 states; packing the states' edge chains into
+//     fewer slots, or running the rounds that only its 5-edge state has as
+//     one slot, was measured and dropped (PERF.md, PR 5): either cost the
+//     other plans more than it saved.
+//   * the logAdd is branch-free and the channel sum of an edge has a
+//     compile-time bound (1, 3 or 5 channels), so a round has no branch:
+//     the compiler turned both into branches at first, which ran every
+//     edge's loads and logAdd one after the other.
+// Lanes a thread: 1.  At 2 and 4 lanes a thread (fewer warps, no fewer
+// instructions) the forward took 5.763 and 10.239 ms against 2.944 (same
+// call as above): a step is bound by instruction issue, each warp on its own
+// scheduler, not by the barrier.
+// The backward recursion writes b to device memory (work) and stops; its
+// epilogue is kernel 3.
+struct RecParams {
+  const float* E;
+  const int* ds;
+  const int* d_last;
+  const float* init;  // forward: start (B, S); backward: end (B, S)
+  const float* tps;
+  const int* edges;
+  float* out;  // forward: F; backward: b
+  int Dp, De, C, S, W, n_tp, n_edges, ds_rows, K;
+};
+
+// The 3 carry rows of S x (W + 2) floats, padded to 16 bytes (the E ring
+// follows them).
+__host__ __device__ __forceinline__ int carry_floats(int S, int W) {
+  return (3 * S * (W + 2) + 3) & ~3;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// cp.async.wait_group takes an immediate: n = K - 3 < RING_MAX - 2.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+#define WAIT_CASE(N) \
+  case N:            \
+    asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); \
+    break;
+    WAIT_CASE(0) WAIT_CASE(1) WAIT_CASE(2) WAIT_CASE(3) WAIT_CASE(4)
+    WAIT_CASE(5) WAIT_CASE(6) WAIT_CASE(7) WAIT_CASE(8)
+#undef WAIT_CASE
+    default:
+      asm volatile("cp.async.wait_group 9;\n" ::: "memory");
+  }
+}
+static_assert(RING_MAX - 3 <= 9, "cp_async_wait covers wait counts up to 9");
+
+// Issue the copies of ring step g (a group is committed by the caller):
+// E row (forward g, backward d_top + 1 - g) and the diagonal-scalar row
+// (forward g, backward d_top - g; none for the backward's step -1).
+template <bool BACKWARD>
+__device__ __forceinline__ void ring_issue(const RecParams& p, const float* Eb,
+                                           const int* dsb, float* ering,
+                                           int* dsring, int g, int slot,
+                                           int n_steps, int dtop, bool vec) {
+  if (g >= n_steps) return;
+  const int CW = p.C * p.W;
+  const float* src = Eb + (size_t)(BACKWARD ? dtop + 1 - g : g) * CW;
+  float* dst = ering + (size_t)slot * CW;
+  if (vec) {
+    for (int q = threadIdx.x; q < CW / 4; q += blockDim.x)
+      cp_async16(dst + 4 * q, src + 4 * q);
+  } else {
+    for (int q = threadIdx.x; q < CW; q += blockDim.x) cp_async4(dst + q, src + q);
+  }
+  if (g >= 0 && threadIdx.x < 8)
+    cp_async4(dsring + slot * 8 + threadIdx.x,
+              dsb + (size_t)(BACKWARD ? dtop - g : g) * 8 + threadIdx.x);
+}
+
+template <bool BACKWARD, int NS, int NCH, bool STAGED>
+__device__ __forceinline__ void recursion_steps(const RecParams& p, const EdgeRec* recs,
+                                                const unsigned char* slot, int rounds,
+                                                const float* sh_init, float* carry,
+                                                float* ering, int* dsring, int dtop,
+                                                int dlast, bool vec) {
+  constexpr int NL = LANES_PER_THREAD;
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int WP = W + 2;
-  for (int i = j; i < n_edges * EDGE_COLS; i += blockDim.x)
-    sh_edges[i] = edges[i];
-  for (int i = j; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
-  __syncthreads();
+  const int S = p.S, W = p.W, WP = W + 2, C = p.C, K = p.K;
+  const int NT = blockDim.x;
+  const int tid = threadIdx.x;
+  const int n_steps = dtop + 1;
+  const int CW = C * W, SWP = S * WP;
+  const float* Eb = p.E + (size_t)b * p.De * CW;
+  const int* dsb = p.ds + (size_t)b * p.ds_rows * 8;
+  float* outb = p.out + (size_t)b * p.Dp * S * W;
 
-  const float* tp = tps + (size_t)b * n_tp;
-  const int dlast = d_last[b];
-  const int* dsb = ds + (size_t)b * ds_rows * 8;
-  const float* Eb = E + (size_t)b * De * C * W;
-  float* Fb = F + (size_t)b * Dp * S * W;
+  // ring slots of steps i, i - 1 and i + K - 2; carry rows of d, d -+ 1,
+  // d -+ 2 (each step moves every one by one)
+  int s_cur = 0, s_prev = K - 1, s_new = K - 2;
+  int c_cur = BACKWARD ? dtop % 3 : 0;
+  int c_1 = BACKWARD ? (dtop + 1) % 3 : 2, c_2 = BACKWARD ? (dtop + 2) % 3 : 1;
+  for (int i = 0; i < n_steps; ++i) {
+    if (STAGED) {
+      ring_issue<BACKWARD>(p, Eb, dsb, ering, dsring, i + K - 2, s_new, n_steps, dtop,
+                           vec);
+      cp_async_commit();
+    }
+    const int d = BACKWARD ? dtop - i : i;
+    const int* row = STAGED ? dsring + s_cur * 8 : dsb + (size_t)d * 8;
+    // forward: E[d]; backward: E[d + 1] (Ea) and E[d + 2] (Ec)
+    const float* Ea = STAGED ? ering + s_cur * CW : Eb + (size_t)(BACKWARD ? d + 1 : d) * CW;
+    const float* Ec = STAGED ? ering + s_prev * CW : Eb + (size_t)(d + 2) * CW;
+    s_prev = s_cur;
+    s_cur = s_cur + 1 == K ? 0 : s_cur + 1;
+    s_new = s_new + 1 == K ? 0 : s_new + 1;
+    const int w0 = row[DS_W0], xl = row[DS_XMYL], xr = row[DS_XMYR];
+    // the lower, middle and upper sources' lane shifts, and their carry rows
+    // (lower and upper: d -+ 1, middle: d -+ 2) with the shift folded in
+    const int shL = BACKWARD ? sgn(row[DS_BL]) : sgn(row[DS_FL]);
+    const int shU = BACKWARD ? sgn(row[DS_BL] - 1) : sgn(row[DS_FL] + 1);
+    const int shM = BACKWARD ? sgn(row[DS_BM]) : sgn(row[DS_FM]);
+    const int oL = c_1 * SWP + shL, oU = c_1 * SWP + shU, oM = c_2 * SWP + shM;
 
-  for (int d = 0; d < Dp; ++d) {
-    if (d > dlast) {  // every later cell is outside the problem
-      for (int dd = d; dd < Dp; ++dd)
-        for (int s = 0; s < S; ++s) Fb[((size_t)dd * S + s) * W + j] = NEG_INF;
-      break;
-    }
-    float* cur = carry + (d % 3) * S * WP;
-    const float* f1 = carry + ((d + 2) % 3) * S * WP;  // F[d-1]
-    const float* f2 = carry + ((d + 1) % 3) * S * WP;  // F[d-2]
-    const int* row = dsb + (size_t)d * 8;
-    const int xmy = row[DS_W0] + 2 * j;
-    const bool valid = xmy >= row[DS_XMYL] && xmy <= row[DS_XMYR];
-    float acc[MAX_S];
-    if (d == 0) {
+    float acc[NL][NS];
 #pragma unroll
-      for (int s = 0; s < MAX_S; ++s)
-        acc[s] = (s < S && valid) ? start[(size_t)b * S + s] : NEG_INF;
-    } else {
-      const int sL = sgn(row[DS_FL]);
-      const int sU = sgn(row[DS_FL] + 1);
-      const int sM = sgn(row[DS_FM]);
-      const float* Ed = Eb + (size_t)d * C * W;
+    for (int q = 0; q < NL; ++q)
 #pragma unroll
-      for (int s = 0; s < MAX_S; ++s) acc[s] = NEG_INF;
-      for (int e = 0; e < n_edges; ++e) {
-        const int* er = sh_edges + e * EDGE_COLS;
-        const int src = er[0];
-        const int sh = src == SRC_LOWER ? sL : (src == SRC_MIDDLE ? sM : sU);
-        const float* prev = src == SRC_MIDDLE ? f2 : f1;
-        const float fv = prev[er[1] * WP + 1 + j + sh];
-        const float val = add_tp(__fadd_rn(fv, esum(Ed, er, W, j)), tp, er);
-        const int to = er[2];
+      for (int s = 0; s < NS; ++s) acc[q][s] = NEG_INF;
+    if (BACKWARD || d > 0) {
+#pragma unroll 2
+      for (int r = 0; r < rounds; ++r) {
 #pragma unroll
-        for (int s = 0; s < MAX_S; ++s)
-          if (s == to) acc[s] = ladd(acc[s], val);
-      }
-      if (!valid) {
+        for (int s = 0; s < NS; ++s) {
+          const EdgeRec er = recs[slot[r * MAX_S + s]];
+          const int src = rec_src(er);
+          const bool lower = src == SRC_LOWER, middle = src == SRC_MIDDLE;
+          // forward: F_src[frm] + E[d] at lane j; backward: b_src[to] at
+          // lane j + sh + E_src at j + sh (0.0 outside the window)
+          const int o = (lower ? oL : (middle ? oM : oU)) + rec_off(er);
 #pragma unroll
-        for (int s = 0; s < MAX_S; ++s) acc[s] = NEG_INF;
+          for (int q = 0; q < NL; ++q) {
+            const int j = tid + q * NT;
+            float val;
+            if (BACKWARD) {
+              const int jj = j + (lower ? shL : (middle ? shM : shU));
+              const float ev = rec_esum<NCH>(middle ? Ec : Ea, er, min(max(jj, 0), W - 1));
+              val = __fadd_rn(carry[o + j], (jj >= 0 && jj < W) ? ev : 0.0f);
+            } else {
+              val = __fadd_rn(carry[o + j], rec_esum<NCH>(Ea, er, j));
+            }
+            acc[q][s] = ladd(acc[q][s], rec_add_t(val, er));
+          }
+        }
       }
     }
+    // the start (forward, d = 0) or end vector (backward, d = d_last)
+    // replaces the recursion's value; cells off the band are NEG_INF
+    const bool at_init = BACKWARD ? d == dlast : d == 0;
+    float* cur = carry + c_cur * SWP + 1;
+    float* outd = outb + (size_t)d * S * W;
 #pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
-      if (s < S) {
-        cur[s * WP + 1 + j] = acc[s];
-        Fb[((size_t)d * S + s) * W + j] = acc[s];
+    for (int q = 0; q < NL; ++q) {
+      const int j = tid + q * NT;
+      const int xmy = w0 + 2 * j;
+      const bool valid = xmy >= xl && xmy <= xr;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if (s < S) {
+          float v = at_init ? sh_init[s] : acc[q][s];
+          v = valid ? v : NEG_INF;
+          cur[s * WP + j] = v;
+          outd[s * W + j] = v;
+        }
       }
     }
+    // the rows rotate: forward d - 2 <- d - 1 <- d; backward d + 2 <- d + 1 <- d
+    const int c_old = c_2;
+    c_2 = c_1;
+    c_1 = c_cur;
+    c_cur = c_old;
+    if (STAGED) cp_async_wait(K - 3);
     __syncthreads();
   }
 }
 
+// Thread 0 plans the rounds: slot[r * MAX_S + s] is the r-th edge of state
+// s (key: to-state, backward from-state) in table order, or MAX_EDGES (the
+// padding edge).  Returns the rounds (the most edges of a state) and in
+// *nch the most E channels of an edge.
+__device__ int build_rounds(const int* __restrict__ edges, int n_edges, bool by_frm,
+                            unsigned char* slot, int* nch) {
+  int cnt[MAX_S];
+  for (int s = 0; s < MAX_S; ++s) cnt[s] = 0;
+  for (int i = 0; i < MAX_EDGES * MAX_S; ++i) slot[i] = MAX_EDGES;
+  int rounds = 0;
+  *nch = 1;
+  for (int e = 0; e < n_edges; ++e) {
+    const int* er = edges + e * EDGE_COLS;
+    const int s = er[by_frm ? 1 : 2];
+    slot[cnt[s] * MAX_S + s] = (unsigned char)e;
+    rounds = max(rounds, ++cnt[s]);
+    for (int k = 0; k < MAX_IDS; ++k)
+      if (er[4 + MAX_IDS + k] >= 0) *nch = max(*nch, 2 + k);
+  }
+  return rounds;
+}
+
+// The step loop at a compile-time bound on the edges' channels.
+template <bool BACKWARD, int NS>
+__device__ __forceinline__ void recursion_nch(int nch, const RecParams& p,
+                                              const EdgeRec* recs,
+                                              const unsigned char* slot, int rounds,
+                                              const float* sh_init, float* carry,
+                                              float* ering, int* dsring, int dtop,
+                                              int dlast, bool vec) {
+  if (nch <= 1)
+    recursion_steps<BACKWARD, NS, 1, true>(p, recs, slot, rounds, sh_init, carry, ering,
+                                           dsring, dtop, dlast, vec);
+  else if (nch <= 3)
+    recursion_steps<BACKWARD, NS, 3, true>(p, recs, slot, rounds, sh_init, carry, ering,
+                                           dsring, dtop, dlast, vec);
+  else
+    recursion_steps<BACKWARD, NS, 1 + MAX_IDS, true>(p, recs, slot, rounds, sh_init,
+                                                     carry, ering, dsring, dtop, dlast,
+                                                     vec);
+}
+
+template <bool BACKWARD>
+__global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ EdgeRec recs[MAX_EDGES + 1];
+  __shared__ unsigned char slot[MAX_EDGES * MAX_S];
+  __shared__ int sh_rounds, sh_nch;
+  __shared__ float sh_init[MAX_S];
+  const int b = blockIdx.x;
+  const int S = p.S, W = p.W, WP = W + 2, C = p.C, K = p.K;
+  float* carry = smem;
+  float* ering = carry + carry_floats(S, W);  // 16-byte aligned for cp.async
+  int* dsring = (int*)(ering + (size_t)K * C * W);
+  load_edges(p.edges, p.tps + (size_t)b * p.n_tp, p.n_edges, W, BACKWARD, recs);
+  if (threadIdx.x == 0)
+    sh_rounds = build_rounds(p.edges, p.n_edges, BACKWARD, slot, &sh_nch);
+  if (threadIdx.x < S) sh_init[threadIdx.x] = p.init[(size_t)b * S + threadIdx.x];
+  for (int i = threadIdx.x; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
+
+  const int dlast = p.d_last[b];
+  const int dtop = min(dlast, p.Dp - 1);
+  if (!BACKWARD) {  // every cell past d_last is outside the problem
+    float* Fb = p.out + (size_t)b * p.Dp * S * W;
+    const size_t from = (size_t)max(dtop + 1, 0) * S * W;
+    for (size_t i = from + threadIdx.x; i < (size_t)p.Dp * S * W; i += blockDim.x)
+      Fb[i] = NEG_INF;
+  }
+  // cp.async.cg takes 16-byte aligned rows: E's rows are C x W floats (W a
+  // multiple of 32), so only the base pointer can break it
+  const bool vec = ((uintptr_t)p.E & 15) == 0;
+  const float* Eb = p.E + (size_t)b * p.De * C * W;
+  const int* dsb = p.ds + (size_t)b * p.ds_rows * 8;
+  if (K) {
+    // steps 0 .. K - 3 ahead of the loop (the backward's E[d_top + 2] rides
+    // in the first group), then wait for step 0
+    for (int g = BACKWARD ? -1 : 0; g <= K - 3; ++g) {
+      ring_issue<BACKWARD>(p, Eb, dsb, ering, dsring, g, (g + K) % K, dtop + 1, dtop,
+                           vec);
+      if (g >= 0) cp_async_commit();
+    }
+    cp_async_wait(K - 3);
+  }
+  __syncthreads();
+  const int rounds = sh_rounds, nch = sh_nch;
+  if (K == 0)  // no ring: E and the scalar rows from device memory, any plan
+    recursion_steps<BACKWARD, MAX_S, 1 + MAX_IDS, false>(p, recs, slot, rounds, sh_init,
+                                                         carry, ering, dsring, dtop,
+                                                         dlast, vec);
+  else if (S <= 3)
+    recursion_nch<BACKWARD, 3>(nch, p, recs, slot, rounds, sh_init, carry, ering, dsring,
+                               dtop, dlast, vec);
+  else if (S <= 5)
+    recursion_nch<BACKWARD, 5>(nch, p, recs, slot, rounds, sh_init, carry, ering, dsring,
+                               dtop, dlast, vec);
+  else
+    recursion_nch<BACKWARD, MAX_S>(nch, p, recs, slot, rounds, sh_init, carry, ering,
+                                   dsring, dtop, dlast, vec);
+}
+
 // ---------------------------------------------------------------------------
-// Kernel 3: backward + per-diagonal totals + posteriors (stages 3, 4)
+// Kernel 3: backward epilogue: per-diagonal totals and posteriors (stages 3,
+// 4), stage-4 per-edge posteriors
 // ---------------------------------------------------------------------------
-// Replaces cpecan_signal_tpu/ops/pallas_fb.py:backward_sm3 (_backward_kernel)
-// at stage 3 (EM = false), with the match posterior or the echelon
-// per-state posteriors (pstates, :537-547), and at stage 4 with window
-// groups (EM = true), with the match posterior or the per-edge-group
+// Replaces the rest of cpecan_signal_tpu/ops/pallas_fb.py:backward_sm3
+// (_backward_kernel) at stage 3 (EM = false), with the match posterior or
+// the echelon per-state posteriors (pstates, :537-547), and at stage 4 with
+// window groups (EM = true), with the match posterior or the per-edge-group
 // posterior channels (pgroups, :535, :579-599), with one problem per row
 // (nh = 1).
-// Bound: the same serial diagonal chain as the forward kernel, plus two
-// block-wide logsumexp reductions per diagonal (the total over S x W and the
-// match-through-diagonal correction).  Design: the forward kernel's shape
-// run in reverse, one block per problem and one thread per lane, with the
-// carries b[d+1], b[d+2] in rotating shared rows.  The two logsumexps are
-// reduced together (warp shuffles, then one shared-memory pass over the
-// warps), three __syncthreads per diagonal in all.  B never leaves the
-// chip: the kernel writes only P and the totals.
+// Bound: device-memory bytes (F, b and E read, P written); no chain.
 //
-// Posteriors (pstates).  pmask lists the states whose posterior
-// exp(min(F[d][s] + b[d][s] - total, 0)) p carries, one channel each in
-// state order: the match state alone for alignment, the five matchN states
-// for echelon (one channel per k-mer count an event may emit).  Once the
-// total is known each thread holds b[d][s] of every state in registers, so
-// a channel costs one F load, an add, a subtract, an exp and one store; the
-// state loop is unrolled over MAX_S with the mask as a runtime test, so one
-// instance (PSTATES = true) serves every machine.  A mask of one state (the
-// match posterior of alignment, and always at stage 4) takes the instances
-// with PSTATES = false, which select that state alone, so the paths that
-// write one channel do not carry the mask loop's registers.
+// Why a kernel of its own, with b in device memory, and not warps of the
+// recursion block trailing it through a shared ring: the recursion is
+// bound by instruction issue (the lanes-per-thread measurement above), and
+// the epilogue's work is large beside it.  At W = 128, Dp = 4096, B = 64 the
+// stage-3 epilogue takes 1.056 ms on all 132 SMs (torch.profiler, same
+// build), about 0.5 us of SM time a diagonal against the recursion's 0.77
+// us a step (3.135 ms), so on the recursion's own SM it would take issue
+// slots from the chain on every step.  As its own kernel it runs at the
+// card's width after the chain, where a bucket of few long problems (realign:
+// 5 of about 200 k diagonals) leaves most SMs idle.  The price is b in
+// device memory: a workspace as large as F, which the symbol lane's bucket
+// size counts (readpath.BUCKET_CELLS).
 //
-// Stage 4 (the EM E-step's tallies, ops/pallas_fb.py:559-624) adds, once
-// the total of diagonal d is known, one posterior per edge and cell,
-// exp(min(F_src[frm] + b[d][to] + E[d] + tp - total, 0)), with F[d-1] /
-// F[d-2] read at the forward kernel's shifts of row d.  It adds no barrier
-// to the chain: each thread keeps its per-edge partial sums over diagonals
-// in its own column of shared memory (registers would cost MAX_EDGES of
-// them a thread) and the block reduces them once, after the last diagonal,
-// so stats sum in another order than the plain version.  The window
-// groups' tallies live in registers, one lane per thread; the one-lane
-// shift where the x-window steps (DS_XS) crosses warps through a shared row
-// written on the parity of d and read after the barrier that closes the
-// diagonal.  exits and gacc sum the same members in the same order as the
-// plain version.  The bound stays the serial chain: the per-edge work is
-// independent across lanes and takes instruction slots, not barriers.
+// Design: one warp per (problem, diagonal), EPI_WARPS or fewer a block (as
+// many as their scratch fits).  Thread t holds lanes t, t + 32, ...: each
+// 32-lane group is summed by a warp butterfly and the groups are added in
+// order, the reduction order of the plain versions' _block_sum, without a
+// block barrier.  Pass 1 forms v1 = F[d] + b[d] + mask and v2 = c + b[d+1]
+// (c extends F[d-1] by the MIDDLE edges onto diagonal d+1's grid) into the
+// warp's scratch and their maxima; pass 2 sums exp(v - max) per lane over
+// the states and over the lanes; the total is lse(v1) ladd lse(v2).  Then
+// the posteriors exp(min(F + b - total, 0)) of the states in pmask (the
+// match state alone without PSTATES), masked to x > 0 and y > 0.
 //
-// Edge groups (PGROUPS, stage 4 only: the nucleotide E-step's one group per
-// to-state, whose channels feed the symbol-pair emission tallies; later the
-// HDP assignment masks).  Channel c of P is the sum, in edge order, of the
-// per-edge posteriors of group c, in place of the match posterior; stats,
-// exits and gacc are as above.  The prologue turns the P 64-bit group masks
-// into one channel bitmask per edge in shared memory, so that the edge loop
-// reads one word an edge; the channel sums live in MAX_S registers, one per
-// channel, written once the edges are done.  The mode is a compile-time
-// instance, so the match-posterior instances keep their code and registers;
-// its windows up to PGROUPS_THREADS lanes take a launch bound that leaves
-// it the registers the channel sums need (96 a thread, no spill, against 64
-// and 12 bytes spilled under the 1024 bound: 64.04 against 65.47 ms at the
-// fiveState plan, W = 128, Dp = 4096, B = 64, on an H100 80GB HBM3 at 700 W,
-// tools/torch_backward_launch_bounds.py).
-//
-// Registers.  MAX_THREADS is the kernel's launch bound.  At 1024 it holds
-// the kernel to 64 registers a thread, so that a block of up to 1024 lanes
-// fits an SM's 65536 registers; stage 4 always runs so (93 registers
-// unbounded, and no slower at 64).  Stage 3 spills at 64 and runs 4.9 %
-// slower than at the 72 that a bound of NARROW_THREADS leaves it (26.02
-// against 24.80 ms at W = 128, Dp = 4096, B = 64 on an H100 80GB HBM3 at
-// 700 W, tools/torch_backward_launch_bounds.py), so windows that fit
-// NARROW_THREADS lanes take that second instance.
-#define NARROW_THREADS 896
-#define PGROUPS_THREADS 512
-template <bool EM, bool PSTATES, bool PGROUPS, int MAX_THREADS>
-__global__ void __launch_bounds__(MAX_THREADS)
-    backward_kernel(const float* __restrict__ E, const float* __restrict__ F,
-                    const int* __restrict__ ds, const int* __restrict__ d_last,
-                    const float* __restrict__ end, const float* __restrict__ tps,
-                    const int* __restrict__ edges, float* __restrict__ P,
-                    float* __restrict__ T, float* __restrict__ exits,
-                    float* __restrict__ gacc_out, float* __restrict__ stats,
-                    int Dp, int De, int C, int S, int W, int n_tp, int n_edges,
-                    int ds_rows, unsigned pmask, int G, unsigned gm0,
-                    unsigned gm1, unsigned gm2, unsigned gm3,
-                    ChannelGroups pgm, int NPG) {
-  // 3 carry rows x S x (W + 2); at stage 4 then n_edges x W per-thread
-  // partial sums and 2 parity rows x G x W for the window-group shift; with
-  // edge groups then one channel bitmask per edge
-  extern __shared__ float carry[];
-  __shared__ int sh_edges[MAX_EDGES * EDGE_COLS];
-  __shared__ float red[4][32];
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int WP = W + 2;
-  for (int i = j; i < n_edges * EDGE_COLS; i += blockDim.x)
-    sh_edges[i] = edges[i];
-  for (int i = j; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
-  float* part = carry + 3 * S * WP;  // part[e * W + j]: thread j's own
-  float* gsh = part + n_edges * W;   // gsh[(parity * G + g) * W + j]
-  unsigned* pch_of = (unsigned*)(gsh + 2 * G * W);  // PGROUPS: edge -> channels
-  const unsigned gmask[MAX_G] = {gm0, gm1, gm2, gm3};
-  float gacc[MAX_G];
-  float lik = 0.0f;
-  if constexpr (EM) {
-    for (int e = 0; e < n_edges; ++e) part[e * W + j] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) gacc[g] = 0.0f;
+// Stage 4 (the EM E-step's tallies, ops/pallas_fb.py:559-624) adds one
+// posterior per edge and cell, exp(min(F_src[frm] + b[to] + E[d] + tp -
+// total, 0)) with F[d-1] / F[d-2] read at the forward's shifts of row d:
+// their sums over the lanes per edge go to work (the carry kernel adds them
+// over the diagonals), the sums over each window group's edges per lane to
+// work (the carry kernel carries them), and with PGROUPS the sums over each
+// edge group, in edge order, to P's channels in place of the match
+// posterior.
+struct EpiParams {
+  const float* E;
+  const float* F;
+  const float* bw;  // b (B, Dp, S, W) from the backward recursion
+  const int* ds;
+  const int* d_last;
+  const float* tps;
+  const int* edges;
+  float* P;
+  float* T;
+  float* pg;    // stage 4: (B, Dp, G, W) window-group sums
+  float* part;  // stage 4: (B, Dp, n_edges) per-edge lane sums
+  int Dp, De, C, S, W, n_tp, n_edges, ds_rows, G, NP;
+  unsigned pmask, gm[MAX_G];
+  ChannelGroups pgm;
+};
+
+template <bool EM, bool PSTATES, bool PGROUPS>
+__global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(EpiParams p) {
+  extern __shared__ __align__(16) float scratch[];
+  __shared__ EdgeRec recs[MAX_EDGES + 1];
+  __shared__ unsigned char mid[MAX_EDGES];
+  __shared__ unsigned pch_of[MAX_EDGES];
+  __shared__ int sh_nmid;
+  const int b = blockIdx.y;
+  const int S = p.S, W = p.W, C = p.C, NL = W / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  load_edges(p.edges, p.tps + (size_t)b * p.n_tp, p.n_edges, W, false, recs);
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int e = 0; e < p.n_edges; ++e)
+      if (p.edges[e * EDGE_COLS] == SRC_MIDDLE) mid[n++] = (unsigned char)e;
+    sh_nmid = n;
   }
-  if constexpr (PGROUPS) {
-    for (int e = j; e < n_edges; e += blockDim.x) {
+  if (PGROUPS) {
+    for (int e = threadIdx.x; e < p.n_edges; e += blockDim.x) {
       unsigned cm = 0u;
-      for (int c = 0; c < NPG; ++c)
-        if ((pgm.m[c] >> e) & 1ull) cm |= 1u << c;
+      for (int c = 0; c < p.NP; ++c)
+        if ((p.pgm.m[c] >> e) & 1ull) cm |= 1u << c;
       pch_of[e] = cm;
     }
   }
   __syncthreads();
+  const int dlast = p.d_last[b];
+  const int d = blockIdx.x * nwarps + warp;
+  if (d >= p.Dp) return;
+  const int NP = p.NP;
+  float* Pd = p.P + ((size_t)b * p.Dp + d) * NP * W;
+  if (d > dlast) {  // b = NEG_INF, total = NEG_INF, posterior 0 exactly
+    for (int i = lane; i < NP * W; i += 32) Pd[i] = 0.0f;
+    if (lane == 0) p.T[(size_t)b * p.Dp + d] = NEG_INF;
+    return;
+  }
+  const int nmid = sh_nmid;
+  const int* row = p.ds + ((size_t)b * p.ds_rows + d) * 8;
+  const int w0 = row[DS_W0], xl = row[DS_XMYL], xr = row[DS_XMYR];
+  const int sM1 = sgn(row[8 + DS_FM]);
+  const size_t SW = (size_t)S * W;
+  const float* Fb = p.F + (size_t)b * p.Dp * SW;
+  const float* Fd = Fb + d * SW;
+  const float* bd = p.bw + ((size_t)b * p.Dp + d) * SW;
+  const bool has_b1 = d + 1 <= min(dlast, p.Dp - 1);
+  const float* E1 = p.E + ((size_t)b * p.De + d + 1) * C * W;
+  float* v1s = scratch + (size_t)warp * (2 * SW + (EM ? 32 * p.n_edges : 0));
+  float* v2s = v1s + SW;
 
-  const float* tp = tps + (size_t)b * n_tp;
-  const int dlast = d_last[b];
-  const int* dsb = ds + (size_t)b * ds_rows * 8;
-  const float* Eb = E + (size_t)b * De * C * W;
-  const float* Fb = F + (size_t)b * Dp * S * W;
-  const int NP = PGROUPS ? NPG : (PSTATES ? __popc(pmask) : 1);  // P channels
-  const int match_state = __ffs((int)pmask) - 1;  // PSTATES = false: its state
-  float* Pb = P + (size_t)b * Dp * NP * W;
-  float* Tb = T + (size_t)b * Dp;
-
-  for (int d = Dp - 1; d >= 0; --d) {
-    if (d > dlast) {  // b = NEG_INF, total = NEG_INF, posterior 0 exactly
-      for (int c = 0; c < NP; ++c) Pb[((size_t)d * NP + c) * W + j] = 0.0f;
-      if (j == 0) Tb[d] = NEG_INF;
-      // nothing is tallied above d_last, so the window-group tallies are
-      // still 0 and their shifts move zeros: only exits[d] = 0 is written
-      if constexpr (EM)
-        if (j < G) exits[((size_t)b * Dp + d) * G + j] = 0.0f;
-      continue;
-    }
-    float* cur = carry + (d % 3) * S * WP;
-    const float* b1 = carry + ((d + 1) % 3) * S * WP;  // b[d+1]
-    const float* b2 = carry + ((d + 2) % 3) * S * WP;  // b[d+2]
-    const int* row = dsb + (size_t)d * 8;
-    const int* row1 = row + 8;
-    const int xmy = row[DS_W0] + 2 * j;
-    const bool valid = xmy >= row[DS_XMYL] && xmy <= row[DS_XMYR];
-    const int sLo = sgn(row[DS_BL]);
-    const int sUp = sgn(row[DS_BL] - 1);
-    const int sMi = sgn(row[DS_BM]);
-    const float* E1 = Eb + (size_t)(d + 1) * C * W;
-    const float* E2 = Eb + (size_t)(d + 2) * C * W;
-
-    // --- backward recursion; E shifts fill with 0.0, b shifts with NEG_INF
-    float acc[MAX_S];
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) acc[s] = NEG_INF;
-    for (int e = 0; e < n_edges; ++e) {
-      const int* er = sh_edges + e * EDGE_COLS;
-      const int src = er[0];
-      const int sh = src == SRC_LOWER ? sLo : (src == SRC_MIDDLE ? sMi : sUp);
-      const float* bN = src == SRC_MIDDLE ? b2 : b1;
-      const float* EN = src == SRC_MIDDLE ? E2 : E1;
-      const int jj = j + sh;
-      const float bv = bN[er[2] * WP + 1 + jj];
-      const float ev = (jj >= 0 && jj < W) ? esum(EN, er, W, jj) : 0.0f;
-      const float val = add_tp(__fadd_rn(bv, ev), tp, er);
-      const int frm = er[1];
-#pragma unroll
-      for (int s = 0; s < MAX_S; ++s)
-        if (s == frm) acc[s] = ladd(acc[s], val);
-    }
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
-      if (d == dlast && s < S) acc[s] = end[(size_t)b * S + s];
-      if (!valid) acc[s] = NEG_INF;
-      if (s < S) cur[s * WP + 1 + j] = acc[s];
-    }
-
-    // --- per-diagonal total: lse(F[d] + b[d] + mask) ladd the
-    // match-through-diagonal correction lse(c + b[d+1]), where c extends
-    // F[d-1] by the MIDDLE edges onto diagonal d+1's grid
-    const float* Fd = Fb + (size_t)d * S * W;
-    const float vmask = valid ? 0.0f : NEG_INF;
-    const int sM1 = sgn(row1[DS_FM]);
+  // pass 1: v1, v2 and their maxima
+  float m1 = -3.4e38f, m2 = -3.4e38f;
+  for (int k = 0; k < NL; ++k) {
+    const int j = lane + 32 * k;
+    const int xmy = w0 + 2 * j;
+    const float vmask = (xmy >= xl && xmy <= xr) ? 0.0f : NEG_INF;
     float c[MAX_S];
 #pragma unroll
     for (int s = 0; s < MAX_S; ++s) c[s] = NEG_INF;
-    for (int e = 0; e < n_edges; ++e) {
-      const int* er = sh_edges + e * EDGE_COLS;
-      if (er[0] != SRC_MIDDLE) continue;
+    for (int i = 0; i < nmid; ++i) {
+      const EdgeRec er = recs[mid[i]];
       const int jj = j + sM1;
-      const float fv = (d >= 1 && jj >= 0 && jj < W)
-                           ? Fb[((size_t)(d - 1) * S + er[1]) * W + jj]
-                           : NEG_INF;
-      const float val = add_tp(__fadd_rn(fv, esum(E1, er, W, j)), tp, er);
-      const int to = er[2];
+      const float f = Fb[max(d - 1, 0) * SW + rec_frm(er) * W + min(max(jj, 0), W - 1)];
+      const float fv = (d >= 1 && jj >= 0 && jj < W) ? f : NEG_INF;
+      const float val = rec_add_t(__fadd_rn(fv, rec_esum<1 + MAX_IDS>(E1, er, j)), er);
+      const int to = rec_to(er);
 #pragma unroll
       for (int s = 0; s < MAX_S; ++s)
         if (s == to) c[s] = ladd(c[s], val);
     }
-    float v1[MAX_S], v2[MAX_S];
-    float m1 = NEG_INF, m2 = NEG_INF;
 #pragma unroll
     for (int s = 0; s < MAX_S; ++s) {
       if (s < S) {
-        v1[s] = __fadd_rn(__fadd_rn(Fd[s * W + j], acc[s]), vmask);
-        v2[s] = __fadd_rn(c[s], b1[s * WP + 1 + j]);
-        m1 = (s == 0) ? v1[s] : fmaxf(m1, v1[s]);
-        m2 = (s == 0) ? v2[s] : fmaxf(m2, v2[s]);
+        const float v1 = __fadd_rn(__fadd_rn(Fd[s * W + j], bd[s * W + j]), vmask);
+        const float v2 = __fadd_rn(c[s], has_b1 ? bd[SW + s * W + j] : NEG_INF);
+        v1s[s * W + j] = v1;
+        v2s[s * W + j] = v2;
+        m1 = fmaxf(m1, v1);
+        m2 = fmaxf(m2, v2);
       }
     }
-    block_max2(m1, m2, red[0], red[1]);
-    float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
-      if (s < S) {
-        s1 = __fadd_rn(s1, expf(__fsub_rn(v1[s], m1)));
-        s2 = __fadd_rn(s2, expf(__fsub_rn(v2[s], m2)));
-      }
+  }
+  m1 = warp_max(m1);
+  m2 = warp_max(m2);
+  // pass 2: the sums, lane group by lane group in order
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int k = 0; k < NL; ++k) {
+    const int j = lane + 32 * k;
+    float l1 = 0.0f, l2 = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      l1 = __fadd_rn(l1, expf(__fsub_rn(v1s[s * W + j], m1)));
+      l2 = __fadd_rn(l2, expf(__fsub_rn(v2s[s * W + j], m2)));
     }
-    block_sum2(s1, s2, red[2], red[3]);
-    const float t1 = lse_finish(m1, s1);
-    const float t2 = lse_finish(m2, s2);
-    const float total = (d >= 1 && d < Dp - 1) ? ladd(t1, t2) : t1;
-    if (j == 0) Tb[d] = total;
+    l1 = warp_sum(l1);
+    l2 = warp_sum(l2);
+    s1 = k == 0 ? l1 : __fadd_rn(s1, l1);
+    s2 = k == 0 ? l2 : __fadd_rn(s2, l2);
+  }
+  const float t1 = lse_finish(m1, s1);
+  const float t2 = lse_finish(m2, s2);
+  const float total = (d >= 1 && d < p.Dp - 1) ? ladd(t1, t2) : t1;
+  if (lane == 0) p.T[(size_t)b * p.Dp + d] = total;
 
-    // --- posteriors of the states in pmask, masked to x > 0 and y > 0
-    // (with edge groups P is written after the per-edge posteriors below)
-    const bool pos_ok = valid && xmy > -d && xmy < d;
-    if constexpr (PSTATES) {
+  // posteriors of the states in pmask, masked to x > 0 and y > 0 (v1 is
+  // F + b there: the mask adds 0.0); with edge groups P is written below
+  if (!PGROUPS) {
+    for (int k = 0; k < NL; ++k) {
+      const int j = lane + 32 * k;
+      const int xmy = w0 + 2 * j;
+      const bool pos_ok = xmy >= xl && xmy <= xr && xmy > -d && xmy < d;
       int pc = 0;
-#pragma unroll
-      for (int s = 0; s < MAX_S; ++s) {
-        if ((pmask >> s) & 1u) {
-          const float pv = expf(
-              fminf(__fsub_rn(__fadd_rn(Fd[s * W + j], acc[s]), total), 0.0f));
-          Pb[((size_t)d * NP + pc) * W + j] = pos_ok ? pv : 0.0f;
+      for (int s = 0; s < S; ++s) {
+        if ((p.pmask >> s) & 1u) {
+          const float pv = expf(fminf(__fsub_rn(v1s[s * W + j], total), 0.0f));
+          Pd[pc * W + j] = pos_ok ? pv : 0.0f;
+          if (!PSTATES) break;
           ++pc;
         }
       }
-    } else if constexpr (!PGROUPS) {
-      float mf = 0.0f, mb = 0.0f;
-#pragma unroll
-      for (int s = 0; s < MAX_S; ++s)
-        if (s == match_state) {
-          mf = Fd[s * W + j];
-          mb = acc[s];
-        }
-      const float pv = expf(fminf(__fsub_rn(__fadd_rn(mf, mb), total), 0.0f));
-      Pb[(size_t)d * W + j] = pos_ok ? pv : 0.0f;
     }
+  }
 
-    // --- stage 4: per-edge posteriors of diagonal d (d >= 1, band cells),
-    // summed in the plain version's order: src + b[to], + E channels, + tp
-    // terms left to right, - total
-    const bool step = row[DS_XS] == 1;  // the x-window steps right at d
-    if constexpr (EM) {
-      const int shL = sgn(row[DS_FL]);
-      const int shU = sgn(row[DS_FL] + 1);
-      const int shM = sgn(row[DS_FM]);
-      const bool em_ok = valid && d >= 1;
-      const float* Ed = Eb + (size_t)d * C * W;
-      float pg[MAX_G];
+  if (EM) {
+    // per-edge posteriors of diagonal d (d >= 1, band cells), summed in the
+    // plain version's order: src + b[to], + E channels, + tp terms, - total
+    float* lsum = v2s + SW;  // lsum[e * 32 + lane]: this lane's edge sums
+    const int n_edges = p.n_edges;
+    for (int e = 0; e < n_edges; ++e) lsum[e * 32 + lane] = 0.0f;
+    const int shL = sgn(row[DS_FL]);
+    const int shU = sgn(row[DS_FL] + 1);
+    const int shM = sgn(row[DS_FM]);
+    const float* Ed = p.E + ((size_t)b * p.De + d) * C * W;
+    for (int k = 0; k < NL; ++k) {
+      const int j = lane + 32 * k;
+      const int xmy = w0 + 2 * j;
+      const bool em_ok = xmy >= xl && xmy <= xr && d >= 1;
+      float pg[MAX_G], pch[MAX_S];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) pg[g] = 0.0f;
-      float pch[MAX_S];
-      if constexpr (PGROUPS) {
 #pragma unroll
-        for (int c = 0; c < MAX_S; ++c) pch[c] = 0.0f;
-      }
+      for (int c = 0; c < MAX_S; ++c) pch[c] = 0.0f;
       for (int e = 0; e < n_edges; ++e) {
-        const int* er = sh_edges + e * EDGE_COLS;
-        const int src = er[0];
+        const EdgeRec er = recs[e];
+        const int src = rec_src(er);
         const int sh = src == SRC_LOWER ? shL : (src == SRC_MIDDLE ? shM : shU);
         const int dd = src == SRC_MIDDLE ? d - 2 : d - 1;
         const int jj = j + sh;
-        const float fv = (dd >= 0 && jj >= 0 && jj < W)
-                             ? Fb[((size_t)dd * S + er[1]) * W + jj]
-                             : NEG_INF;
-        float bto = NEG_INF;
-#pragma unroll
-        for (int s = 0; s < MAX_S; ++s)
-          if (s == er[2]) bto = acc[s];
+        const float f = Fb[max(dd, 0) * SW + rec_frm(er) * W + min(max(jj, 0), W - 1)];
+        const float fv = (dd >= 0 && jj >= 0 && jj < W) ? f : NEG_INF;
+        const float bto = bd[rec_to(er) * W + j];
         const float logp = __fsub_rn(
-            add_tp(__fadd_rn(__fadd_rn(fv, bto), esum(Ed, er, W, j)), tp, er),
-            total);
+            rec_add_t(__fadd_rn(__fadd_rn(fv, bto), rec_esum<1 + MAX_IDS>(Ed, er, j)), er), total);
         const float pe = em_ok ? expf(fminf(logp, 0.0f)) : 0.0f;
-        part[e * W + j] = __fadd_rn(part[e * W + j], pe);
+        lsum[e * 32 + lane] = __fadd_rn(lsum[e * 32 + lane], pe);
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
-          if (g < G && e < 32 && ((gmask[g] >> e) & 1u))
-            pg[g] = __fadd_rn(pg[g], pe);
-        if constexpr (PGROUPS) {
+          if (g < p.G && e < 32 && ((p.gm[g] >> e) & 1u)) pg[g] = __fadd_rn(pg[g], pe);
+        if (PGROUPS) {
           const unsigned cm = pch_of[e];
 #pragma unroll
           for (int c = 0; c < MAX_S; ++c)
             if ((cm >> c) & 1u) pch[c] = __fadd_rn(pch[c], pe);
         }
       }
-      if constexpr (PGROUPS) {
+      float* pgd = p.pg + ((size_t)b * p.Dp + d) * p.G * W;
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < p.G) pgd[g * W + j] = pg[g];
+      if (PGROUPS) {
 #pragma unroll
         for (int c = 0; c < MAX_S; ++c)
-          if (c < NP) Pb[((size_t)d * NP + c) * W + j] = pch[c];
+          if (c < NP) Pd[c * W + j] = pch[c];
       }
-      if (d >= 1) lik = __fadd_rn(lik, total);
+    }
+    float* partd = p.part + ((size_t)b * p.Dp + d) * n_edges;
+    for (int e = 0; e < n_edges; ++e) {
+      const float v = warp_sum(lsum[e * 32 + lane]);
+      if (lane == 0) partd[e] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 4: stage-4 carry: window-group tallies, exits, stats
+// ---------------------------------------------------------------------------
+// The window groups' tally (ops/pallas_fb.py:600-611) is an ordered pass
+// over the diagonals, d_last down to 0: add the diagonal's group sums, let
+// lane W-1 leave as exits[d] where the x-window steps (DS_XS), and shift the
+// rest one lane right.  Design: one block per problem, one thread per lane
+// slot, and no data moves: logical lane j lives in slot (j + base) mod W,
+// a shift decrements base and zeroes the slot that left, so a thread only
+// adds its slot's sums and no thread waits on another; the loads of
+// CARRY_BATCH diagonals go out before their adds.  The same adds in the
+// same order as the plain version, so exits and gacc are exact.  Then lane
+// e < n_edges of stats sums edge e's lane sums and LIK_LANE the totals of
+// d >= 1, from d_last down (the plain version's order over the diagonals,
+// the kernel's butterfly within one).
+#define CARRY_BATCH 8
+#define CARRY_CHUNK 256
+__global__ void __launch_bounds__(RECURSION_THREADS)
+    carry_kernel(const int* __restrict__ ds, const int* __restrict__ d_last,
+                 const float* __restrict__ T, const float* __restrict__ pg,
+                 const float* __restrict__ part, float* __restrict__ exits,
+                 float* __restrict__ gacc_out, float* __restrict__ stats, int Dp, int W,
+                 int G, int n_edges, int ds_rows) {
+  __shared__ unsigned char stp[CARRY_CHUNK];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int dlast = d_last[b];
+  const int dtop = min(dlast, Dp - 1);
+  const int* dsb = ds + (size_t)b * ds_rows * 8;
+  // nothing is tallied above d_last: exits 0 there
+  for (int i = t; i < (Dp - 1 - dtop) * G; i += blockDim.x)
+    exits[((size_t)b * Dp + dtop + 1) * G + i] = 0.0f;
+  float acc[MAX_G];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
-          gacc[g] = __fadd_rn(gacc[g], pg[g]);
-          if (j == W - 1)
-            exits[((size_t)b * Dp + d) * G + g] = step ? gacc[g] : 0.0f;
-          if (step) gsh[((d & 1) * G + g) * W + j] = gacc[g];
+  for (int g = 0; g < MAX_G; ++g) acc[g] = 0.0f;
+  int base = 0;
+  // CARRY_CHUNK diagonals at a time: their window steps first, into shared
+  // memory; then per group CARRY_BATCH diagonals' sums are loaded (their
+  // lanes follow from the steps alone) and added in order
+  for (int c0 = dtop; c0 >= 0; c0 -= CARRY_CHUNK) {
+    const int n = min(CARRY_CHUNK, c0 + 1);
+    __syncthreads();
+    for (int k = t; k < n; k += blockDim.x) stp[k] = dsb[(size_t)(c0 - k) * 8 + DS_XS] == 1;
+    __syncthreads();
+    int base_end = base;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g >= G) break;
+      float a = acc[g];
+      int bb = base;
+      for (int k0 = 0; k0 < n; k0 += CARRY_BATCH) {
+        bool step[CARRY_BATCH];
+        int jb[CARRY_BATCH];
+        float x[CARRY_BATCH];
+#pragma unroll
+        for (int u = 0; u < CARRY_BATCH; ++u) {
+          const int k = min(k0 + u, n - 1);
+          step[u] = k0 + u < n && stp[k];
+          jb[u] = t - bb < 0 ? t - bb + W : t - bb;  // this slot's logical lane
+          x[u] = pg[(((size_t)b * Dp + c0 - k) * G + g) * W + jb[u]];
+          if (step[u]) bb = bb == 0 ? W - 1 : bb - 1;
+        }
+#pragma unroll
+        for (int u = 0; u < CARRY_BATCH; ++u) {
+          if (k0 + u >= n) break;
+          a = __fadd_rn(a, x[u]);
+          if (jb[u] == W - 1) {
+            exits[((size_t)b * Dp + c0 - k0 - u) * G + g] = step[u] ? a : 0.0f;
+            if (step[u]) a = 0.0f;
+          }
         }
       }
+      acc[g] = a;
+      base_end = bb;
     }
-    __syncthreads();
-    if constexpr (EM) {
-      // lane W-1 has left; every other lane moves one to the right
-      if (step) {
+    base = base_end;
+  }
+  const int j = t - base < 0 ? t - base + W : t - base;
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) gacc[g] = j > 0 ? gsh[((d & 1) * G + g) * W + j - 1] : 0.0f;
+  for (int g = 0; g < MAX_G; ++g)
+    if (g < G) gacc_out[((size_t)b * G + g) * W + j] = acc[g];
+  // stats: lane e < n_edges sums edge e's lane sums and LIK_LANE the totals
+  // of d >= 1, over the diagonals from d_last down: the plain version's order
+  float* Sb = stats + (size_t)b * STATS_LANES;
+  for (int i = t; i < STATS_LANES; i += blockDim.x) {
+    const bool lik = i == LIK_LANE && i >= n_edges;
+    const float* src = i < n_edges ? part + (size_t)b * Dp * n_edges + i
+                                   : T + (size_t)b * Dp;
+    const int stride = i < n_edges ? n_edges : 1;
+    const int dmin = lik ? 1 : 0;
+    float v = 0.0f;
+    if (i < n_edges || lik) {
+      for (int d0 = dtop; d0 >= dmin; d0 -= CARRY_BATCH) {
+        float y[CARRY_BATCH];
+#pragma unroll
+        for (int u = 0; u < CARRY_BATCH; ++u) y[u] = src[(size_t)max(d0 - u, 0) * stride];
+#pragma unroll
+        for (int u = 0; u < CARRY_BATCH; ++u)
+          if (d0 - u >= dmin) v = __fadd_rn(v, y[u]);
       }
     }
+    Sb[i] = v;
   }
+}
 
-  if constexpr (EM) {
-    for (int g = 0; g < G; ++g) gacc_out[((size_t)b * G + g) * W + j] = gacc[g];
-    float* Sb = stats + (size_t)b * STATS_LANES;
-    // every thread holds the same likelihood (total is block-uniform)
-    for (int i = j; i < STATS_LANES; i += blockDim.x)
-      if (i >= n_edges) Sb[i] = (i == LIK_LANE) ? lik : 0.0f;
-    for (int e = 0; e < n_edges; e += 2) {
-      float a = part[e * W + j];
-      float a2 = (e + 1 < n_edges) ? part[(e + 1) * W + j] : 0.0f;
-      block_sum2(a, a2, red[2], red[3]);
-      if (j == 0) {
-        Sb[e] = a;
-        if (e + 1 < n_edges) Sb[e + 1] = a2;
-      }
-      __syncthreads();  // red is rewritten by the next pair
-    }
-  }
+// ---------------------------------------------------------------------------
+// Launch configuration (mirrored by ops/fb_kernels.ring_depth and
+// epilogue_warps, which the CPU tests check at every plan and width)
+// ---------------------------------------------------------------------------
+
+// E-ring slots of a recursion launch: as many E rows (C x W floats, and an
+// 8-int scalar row) as fit beside the 3 carry rows, at most RING_MAX; 0 (no
+// ring: E read from device memory) if fewer than 3 fit.
+static int ring_depth(int S, int C, int W, size_t* smem) {
+  const size_t carry = (size_t)carry_floats(S, W) * sizeof(float);
+  const size_t row = (size_t)C * W * sizeof(float) + 8 * sizeof(int);
+  size_t k = carry < SMEM_LIMIT ? (SMEM_LIMIT - carry) / row : 0;
+  if (k > RING_MAX) k = RING_MAX;
+  if (k < 3) k = 0;
+  *smem = carry + k * row;
+  return (int)k;
+}
+
+// Warps (diagonals) of an epilogue block: up to EPI_WARPS whose scratch
+// (v1 and v2 rows, and at stage 4 32 lanes of per-edge sums) fits.
+static int epilogue_warps(int S, int W, int n_edges, bool em, size_t* smem) {
+  const size_t per = ((size_t)2 * S * W + (em ? 32 * (size_t)n_edges : 0)) * sizeof(float);
+  size_t n = SMEM_LIMIT / per;
+  if (n > EPI_WARPS) n = EPI_WARPS;
+  *smem = n * per;
+  return (int)n;
+}
+
+// Raise the kernel's dynamic shared memory limit on every launch: without
+// the opt-in a block gets 48 KB of static and dynamic shared memory
+// together, so a dynamic size just under 48 KB would fail beside the static
+// arrays.
+static cudaError_t allow_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <bool BACKWARD>
+static cudaError_t launch_recursion(RecParams p, int B, cudaStream_t stream) {
+  size_t smem;
+  p.K = ring_depth(p.S, p.C, p.W, &smem);
+  cudaError_t err = allow_smem((const void*)recursion_kernel<BACKWARD>, smem);
+  if (err != cudaSuccess) return err;
+  recursion_kernel<BACKWARD><<<B, p.W / LANES_PER_THREAD, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The backward pass: recursion into work, the epilogue, at stage 4 the carry.
+template <bool EM, bool PSTATES, bool PGROUPS>
+static cudaError_t launch_backward(const float* E, const float* F, const int* ds,
+                                   const int* d_last, const float* end,
+                                   const float* tps, const int* edges, float* P,
+                                   float* T, float* exits, float* gacc, float* stats,
+                                   int B, int Dp, int De, int C, int S, int W,
+                                   int n_tp, int n_edges, int ds_rows, unsigned pmask,
+                                   int G, const unsigned* gm, const ChannelGroups& pgm,
+                                   int NP, float* work, cudaStream_t stream) {
+  if (W % LANES_PER_THREAD) return cudaErrorInvalidValue;
+  float* bw = work;
+  const RecParams rp = {E, ds, d_last, end, tps, edges, bw, Dp, De, C, S, W,
+                        n_tp, n_edges, ds_rows, 0};
+  cudaError_t err = launch_recursion<true>(rp, B, stream);
+  if (err != cudaSuccess) return err;
+
+  EpiParams ep = {};
+  ep.E = E; ep.F = F; ep.bw = bw; ep.ds = ds; ep.d_last = d_last; ep.tps = tps;
+  ep.edges = edges; ep.P = P; ep.T = T;
+  ep.pg = bw + (size_t)B * Dp * S * W;
+  ep.part = ep.pg + (size_t)B * Dp * G * W;
+  ep.Dp = Dp; ep.De = De; ep.C = C; ep.S = S; ep.W = W; ep.n_tp = n_tp;
+  ep.n_edges = n_edges; ep.ds_rows = ds_rows; ep.G = G; ep.NP = NP;
+  ep.pmask = pmask;
+  for (int g = 0; g < MAX_G; ++g) ep.gm[g] = gm[g];
+  ep.pgm = pgm;
+  size_t smem;
+  const int nw = epilogue_warps(S, W, n_edges, EM, &smem);
+  err = allow_smem((const void*)epilogue_kernel<EM, PSTATES, PGROUPS>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Dp + nw - 1) / nw, B);
+  epilogue_kernel<EM, PSTATES, PGROUPS><<<grid, 32 * nw, smem, stream>>>(ep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !EM) return err;
+  carry_kernel<<<B, W, 0, stream>>>(ds, d_last, T, ep.pg, ep.part, exits, gacc, stats,
+                                    Dp, W, G, n_edges, ds_rows);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -652,49 +1053,21 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // synchronise, and returns cudaGetLastError() (0 = launched).
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory: the 3 carry rows, plus ``extra`` floats.  The
-// kernel's limit is raised to it on every launch: without the opt-in a
-// block gets 48 KB of static and dynamic shared memory together, so a
-// dynamic size just under 48 KB would fail beside the static arrays.
-static cudaError_t carry_smem(const void* fn, int S, int W, size_t extra,
-                              size_t* bytes) {
-  *bytes = ((size_t)3 * S * (W + 2) + extra) * sizeof(float);
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*bytes);
-}
-
-// One backward launch: a block of W threads per problem, ``extra`` floats
-// of dynamic shared memory past the carry rows.
-template <bool EM, bool PSTATES, bool PGROUPS, int MAX_THREADS,
-          typename... Args>
-static cudaError_t launch_backward(int B, int S, int W, size_t extra,
-                                   cudaStream_t stream, Args... args) {
-  size_t smem;
-  cudaError_t err = carry_smem(
-      (const void*)backward_kernel<EM, PSTATES, PGROUPS, MAX_THREADS>, S, W,
-      extra, &smem);
-  if (err != cudaSuccess) return err;
-  backward_kernel<EM, PSTATES, PGROUPS, MAX_THREADS>
-      <<<B, W, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// Stage 3 at one of its four instances: several posterior channels or one,
-// and the launch bound that fits W.
-template <bool PSTATES, typename... Args>
-static cudaError_t launch_stage3(int B, int S, int W, cudaStream_t stream,
-                                 Args... args) {
-  if (W <= NARROW_THREADS)
-    return launch_backward<false, PSTATES, false, NARROW_THREADS>(
-        B, S, W, 0, stream, args...);
-  return launch_backward<false, PSTATES, false, 1024>(B, S, W, 0, stream,
-                                                      args...);
-}
-
 extern "C" {
 
 const char* fb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The launch configuration the recursion and the epilogue take: ring slots
+// and dynamic shared bytes of a recursion, warps and bytes of an epilogue
+// block (for the wrappers' mirror of it).
+void fb_launch_config(int S, int C, int W, int n_edges, int em, int* cfg) {
+  size_t smem;
+  cfg[0] = ring_depth(S, C, W, &smem);
+  cfg[1] = (int)smem;
+  cfg[2] = epilogue_warps(S, W, n_edges, em != 0, &smem);
+  cfg[3] = (int)smem;
 }
 
 int fb_emissions_sm3(const int* x0, const int* yr0, const float* xarr,
@@ -714,36 +1087,34 @@ int fb_forward(const float* E, const int* ds, const int* d_last,
                int n_edges, int ds_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  size_t smem;
-  err = carry_smem((const void*)forward_kernel, S, W, 0, &smem);
-  if (err != cudaSuccess) return (int)err;
-  forward_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
-      E, ds, d_last, start, tps, edges, F, Dp, De, C, S, W, n_tp, n_edges,
-      ds_rows);
-  return (int)cudaGetLastError();
+  if (W % LANES_PER_THREAD) return (int)cudaErrorInvalidValue;
+  const RecParams rp = {E, ds, d_last, start, tps, edges, F, Dp, De, C, S, W,
+                        n_tp, n_edges, ds_rows, 0};
+  return (int)launch_recursion<false>(rp, B, (cudaStream_t)stream);
 }
 
 // Stage 3: pmask (bits < S) lists the states of P's channels, in order;
-// 1 << match_state for the match posterior alone.
+// 1 << match_state for the match posterior alone.  work: backward_work_floats.
 int fb_backward_sm3(const float* E, const float* F, const int* ds,
                     const int* d_last, const float* end, const float* tps,
                     const int* edges, float* P, float* T, int B, int Dp, int De,
                     int C, int S, int W, int n_tp, int n_edges, int ds_rows,
-                    int pmask, int device, void* stream) {
+                    int pmask, float* work, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (pmask <= 0 || (pmask >> S) != 0) return (int)cudaErrorInvalidValue;
-  float* none = nullptr;
+  const unsigned gm[MAX_G] = {0u, 0u, 0u, 0u};
   const ChannelGroups no_groups = {};
-  if (__builtin_popcount(pmask) == 1)
-    return (int)launch_stage3<false>(
-        B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
-        none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-        (unsigned)pmask, 0, 0u, 0u, 0u, 0u, no_groups, 0);
-  return (int)launch_stage3<true>(
-      B, S, W, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges, P, T,
-      none, none, none, Dp, De, C, S, W, n_tp, n_edges, ds_rows,
-      (unsigned)pmask, 0, 0u, 0u, 0u, 0u, no_groups, 0);
+  const int np = __builtin_popcount(pmask);
+  if (np == 1)
+    return (int)launch_backward<false, false, false>(
+        E, F, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp,
+        De, C, S, W, n_tp, n_edges, ds_rows, (unsigned)pmask, 0, gm, no_groups, 1,
+        work, (cudaStream_t)stream);
+  return (int)launch_backward<false, true, false>(
+      E, F, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp, De,
+      C, S, W, n_tp, n_edges, ds_rows, (unsigned)pmask, 0, gm, no_groups, np, work,
+      (cudaStream_t)stream);
 }
 
 // Stage 4: G (1..MAX_G) window groups; gm<g> is group g's edge bitmask
@@ -754,17 +1125,18 @@ int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
                        float* gacc, float* stats, int B, int Dp, int De, int C,
                        int S, int W, int n_tp, int n_edges, int ds_rows,
                        int match_state, int G, int gm0, int gm1, int gm2,
-                       int gm3, int device, void* stream) {
+                       int gm3, float* work, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G < 1 || G > MAX_G || match_state < 0 || match_state >= S)
     return (int)cudaErrorInvalidValue;
+  const unsigned gm[MAX_G] = {(unsigned)gm0, (unsigned)gm1, (unsigned)gm2,
+                              (unsigned)gm3};
   const ChannelGroups no_groups = {};
-  return (int)launch_backward<true, false, false, 1024>(
-      B, S, W, (size_t)(n_edges + 2 * G) * W, (cudaStream_t)stream, E, F, ds,
-      d_last, end, tps, edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp,
-      n_edges, ds_rows, 1u << match_state, G, (unsigned)gm0, (unsigned)gm1,
-      (unsigned)gm2, (unsigned)gm3, no_groups, 0);
+  return (int)launch_backward<true, false, false>(
+      E, F, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
+      W, n_tp, n_edges, ds_rows, 1u << match_state, G, gm, no_groups, 1, work,
+      (cudaStream_t)stream);
 }
 
 // Stage 4 with edge groups: as fb_backward_sm3_em, but P (B, Dp, NPG, W)
@@ -777,7 +1149,8 @@ int fb_backward_sm3_pgroups(const float* E, const float* F, const int* ds,
                             int B, int Dp, int De, int C, int S, int W,
                             int n_tp, int n_edges, int ds_rows, int G, int gm0,
                             int gm1, int gm2, int gm3, int NPG,
-                            const long long* masks, int device, void* stream) {
+                            const long long* masks, float* work, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G < 1 || G > MAX_G || NPG < 1 || NPG > MAX_S || n_edges > MAX_EDGES)
@@ -788,17 +1161,12 @@ int fb_backward_sm3_pgroups(const float* E, const float* F, const int* ds,
     if (n_edges < 64 && (groups.m[c] >> n_edges) != 0ull)
       return (int)cudaErrorInvalidValue;
   }
-  const size_t extra = (size_t)(n_edges + 2 * G) * W + n_edges;
-  if (W <= PGROUPS_THREADS)
-    return (int)launch_backward<true, false, true, PGROUPS_THREADS>(
-        B, S, W, extra, (cudaStream_t)stream, E, F, ds, d_last, end, tps,
-        edges, P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp, n_edges,
-        ds_rows, 1u, G, (unsigned)gm0, (unsigned)gm1, (unsigned)gm2,
-        (unsigned)gm3, groups, NPG);
-  return (int)launch_backward<true, false, true, 1024>(
-      B, S, W, extra, (cudaStream_t)stream, E, F, ds, d_last, end, tps, edges,
-      P, T, exits, gacc, stats, Dp, De, C, S, W, n_tp, n_edges, ds_rows, 1u, G,
-      (unsigned)gm0, (unsigned)gm1, (unsigned)gm2, (unsigned)gm3, groups, NPG);
+  const unsigned gm[MAX_G] = {(unsigned)gm0, (unsigned)gm1, (unsigned)gm2,
+                              (unsigned)gm3};
+  return (int)launch_backward<true, false, true>(
+      E, F, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
+      W, n_tp, n_edges, ds_rows, 1u, G, gm, groups, NPG, work,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -43,7 +43,8 @@ _NBASE = 4       # base-model slots per bucket (stacked table upload)
 _EXTRACT_L = 16  # per-diagonal slot cap of the two-stage compaction
 MAX_BUCKET = 64            # symbol-lane problems per bucket
 BUCKET_CELLS = 3 << 27     # symbol-lane window cells per bucket (the E-step's
-                           # E 4.8 GB, F and P 8.1 GB each)
+                           # E 4.8 GB, F and P 8.1 GB each, the backward's
+                           # workspace 9.8 GB: b and the window-group sums)
 
 
 def _round_up(x: int, m: int) -> int:

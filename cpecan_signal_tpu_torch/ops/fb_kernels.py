@@ -45,6 +45,41 @@ LIK_LANE = 64    # stats lane of the likelihood (lanes < 64: per-edge tallies)
 LAUNCHES = {"emissions": 0, "forward": 0, "backward": 0, "backward_em": 0,
             "backward_pstates": 0, "backward_pgroups": 0}
 
+# Launch configuration of csrc/fb_sm3.cu (ring_depth, epilogue_warps), which
+# the C entry point fb_launch_config reports on the card
+SMEM_LIMIT = 232448 - 4096   # shared bytes a block may use, less the static arrays
+RING_MAX = 12                # deepest E ring of a recursion
+EPI_WARPS = 8                # diagonals (warps) of an epilogue block
+
+
+def ring_depth(S: int, C: int, W: int) -> tuple[int, int]:
+    """(E-ring slots, dynamic shared bytes) of a recursion launch: 3 carry
+    rows of S x (W + 2) floats (padded to 16 bytes), then as many slots of
+    one E row (C x W floats) and one 8-int scalar row as fit, at most
+    RING_MAX; 0 slots (E read from device memory) where fewer than 3 fit."""
+    carry = (3 * S * (W + 2) + 3) // 4 * 16
+    row = C * W * 4 + 32
+    k = min(RING_MAX, (SMEM_LIMIT - carry) // row) if carry < SMEM_LIMIT else 0
+    k = 0 if k < 3 else k
+    return k, carry + k * row
+
+
+def epilogue_warps(S: int, W: int, n_edges: int, em: bool) -> tuple[int, int]:
+    """(warps, dynamic shared bytes) of a backward epilogue block: one warp
+    per diagonal, each with scratch for its v1 and v2 rows (2 x S x W
+    floats) and at stage 4 32 lanes of per-edge sums, at most EPI_WARPS."""
+    per = (2 * S * W + (32 * n_edges if em else 0)) * 4
+    n = min(EPI_WARPS, SMEM_LIMIT // per)
+    return n, n * per
+
+
+def backward_work_floats(B: int, Dp: int, S: int, W: int, G: int = 0,
+                         n_edges: int = 0) -> int:
+    """Floats of the backward workspace: b (B, Dp, S, W) from the recursion
+    and, at stage 4 (G window groups), the window-group sums (B, Dp, G, W)
+    and the per-edge lane sums (B, Dp, n_edges) of the epilogue."""
+    return B * Dp * (S * W + G * W + n_edges)
+
 
 # ---------------------------------------------------------------------------
 # Plain versions
@@ -183,9 +218,9 @@ def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.T
 
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the lanes (the last axis, a multiple of 32) in the order of
-    the kernels' block reduction (csrc/fb_sm3.cu block_sum2): in each warp
-    of 32 lanes a butterfly that adds lane i + o to lane i for o = 16, 8,
-    4, 2, 1, then the warps' sums left to right."""
+    the backward epilogue's reduction (csrc/fb_sm3.cu warp_sum): in each
+    group of 32 lanes a butterfly that adds lane i + o to lane i for o =
+    16, 8, 4, 2, 1, then the groups' sums left to right."""
     w = x.reshape(x.shape[:-1] + (-1, 32))
     for o in (16, 8, 4, 2, 1):
         w = w[..., :o] + w[..., o:2 * o]
@@ -503,7 +538,9 @@ def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tenso
 def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
                  tp_scalar, stages: int = 3, wgroups=None, pstates=None,
                  pgroups=None):
-    """Fused backward pass.  Stage 3: the reverse recursion from b[d+1] /
+    """Backward pass (on the card: the recursion kernel, which writes b to a
+    workspace of ``backward_work_floats``, then the epilogue kernel, and at
+    stage 4 the carry kernel).  Stage 3: the reverse recursion from b[d+1] /
     b[d+2] with E[d+1] / E[d+2] (E shifted with a 0.0 fill), the end vector
     injected at d_last, the per-diagonal total lse(F*b) ladd the
     match-through-diagonal correction, and the match posterior
@@ -570,21 +607,27 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
     args = (_p(E), _p(F), _p(diag_scalars), _p(d_last), _p(end), _p(tp_scalar),
             _p(edges), _p(P), _p(T))
-    dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], edges.shape[0], Dp + 1)
+    n_edges = edges.shape[0]
+    dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], n_edges, Dp + 1)
     if stages == 3:
+        work = torch.empty(backward_work_floats(B, Dp, S, W), dtype=torch.float32,
+                           device=dev)
         _launch("backward" if pstates is None else "backward_pstates",
-                "fb_backward_sm3", dev, *args, *dims, pmask)
+                "fb_backward_sm3", dev, *args, *dims, pmask, _p(work))
         return P, T
-    masks = group_masks(wgroups, edges.shape[0])
+    masks = group_masks(wgroups, n_edges)
     G = len(wgroups)
     exits = torch.empty((B, Dp, G), dtype=torch.float32, device=dev)
     gacc = torch.empty((B, G, W), dtype=torch.float32, device=dev)
     stats = torch.empty((B, STATS_LANES), dtype=torch.float32, device=dev)
+    work = torch.empty(backward_work_floats(B, Dp, S, W, G, n_edges),
+                       dtype=torch.float32, device=dev)
     if pgroups is None:
         _launch("backward_em", "fb_backward_sm3_em", dev, *args, _p(exits), _p(gacc),
-                _p(stats), *dims, match_state, G, *masks)
+                _p(stats), *dims, match_state, G, *masks, _p(work))
     else:
         host_masks = (ctypes.c_longlong * len(pmasks))(*pmasks)
         _launch("backward_pgroups", "fb_backward_sm3_pgroups", dev, *args, _p(exits),
-                _p(gacc), _p(stats), *dims, G, *masks, len(pmasks), host_masks)
+                _p(gacc), _p(stats), *dims, G, *masks, len(pmasks), host_masks,
+                _p(work))
     return P, T, exits, gacc, stats

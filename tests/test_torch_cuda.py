@@ -379,7 +379,7 @@ def test_cuda_backward_pgroups_matches_plain(W, expansion, cuda_device):
 def test_cuda_backward_pgroups_wide_window_matches_plain(W, bases, cuda_device):
     """The edge-group stage 4 on wide windows (two unanchored pairs of
     570-630 and 960-1000 bases) as on the narrow ones: past 512 lanes, and
-    at 1024, the widest block the kernel's launch bound allows."""
+    at 1024, the widest recursion block."""
     from cpecan_signal_tpu_torch.em.discrete import collect_symbol_split_jobs
     from cpecan_signal_tpu_torch.engine import readpath
 
@@ -398,14 +398,17 @@ def test_cuda_backward_pgroups_wide_window_matches_plain(W, bases, cuda_device):
 
 
 def _check_pgroups(plan, b, W, pgroup_sets):
-    """The edge-group stage 4 of the bucket on the card against its plain
-    version; the first ``pgroup_sets`` of: one channel per to-state, eight
-    single-edge channels."""
+    """The fiveState forward and the edge-group stage 4 of the bucket on the
+    card against their plain versions; the first ``pgroup_sets`` of: one
+    channel per to-state, eight single-edge channels."""
     from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
 
     dev = b.E.device
     edges = pp.to_device(edge_table(plan), dev)
     F = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    torch.testing.assert_close(F, fk.forward_sm3_ref(edges, b.E, b.diag_scalars, b.d_last,
+                                                     b.start, b.tp_scalar),
+                               rtol=1e-5, atol=1e-3)
     args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
     groups = pp.sm3_wgroups(plan)
     sets = (_to_state_pgroups(plan), tuple((e,) for e in (0, 2, 4, 5, 8, 9, 11, 12)))
@@ -443,3 +446,72 @@ def test_cuda_discrete_estep_matches_cpu(cuda_device):
         np.testing.assert_allclose(t, wt, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(e, we, rtol=1e-4, atol=1e-5)
         assert abs(lik - wl) <= 1e-5 * abs(wl)
+
+
+def test_cuda_launch_config_matches_wrappers(cuda_device):
+    """The C library sizes the recursion's E ring and the epilogue block as
+    ops/fb_kernels.ring_depth and epilogue_warps do (the CPU tests check
+    those at every plan and width)."""
+    import ctypes
+
+    from cpecan_signal_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    cfg = (ctypes.c_int * 4)()
+    for S, C, n_edges in ((3, 3, 8), (4, 3, 11), (3, 8, 7), (7, 17, 46), (5, 3, 13)):
+        for W in range(32, 1025, 32):
+            for em in (0, 1):
+                lib.fb_launch_config(S, C, W, n_edges, em, cfg)
+                assert tuple(cfg) == (fk.ring_depth(S, C, W)
+                                      + fk.epilogue_warps(S, W, n_edges, bool(em)))
+
+
+@pytest.mark.parametrize("Dp", [256, 301])
+def test_cuda_ring_edges_match_plain(Dp, cuda_device, tmp_path):
+    """The recursions' E ring at its edges: problems whose last diagonal
+    comes before the ring's depth (d_last 6-14 against 12 slots) beside
+    longer ones, ragged starts and ends mixed, at the smallest Dp rung (256)
+    and at a Dp that is no multiple of the ring's depth; forward, stage 3
+    and stage 4 against their plain versions at the tolerances above."""
+    rng = np.random.default_rng(41)
+    pore = _pore(tmp_path, rng)
+    W = 64
+    assert fk.ring_depth(3, 3, W)[0] == 12
+    cases = []
+    for n_bases in (8, 9, 10, 12, 40, 60):
+        while True:
+            target = "".join(rng.choice(list("ACGT"), n_bases))
+            events, _path = syn.simulate_events(pore, target, rng)
+            wb = smooth_band(band_construct(np.zeros((0, 2), dtype=np.int64),
+                                            len(target) - 5, len(events), 20),
+                             width_multiple=W)
+            if wb.W == W:
+                cases.append((target, events, wb))
+                break
+    plan, probs = None, []
+    for i, (target, events, wb) in enumerate(cases):
+        plan, prob = pp.make_sm3_problem(pore, target, events, wb, device=cuda_device,
+                                         ragged_left=bool(i % 2), ragged_right=i < 3,
+                                         pad_lx=170, pad_ly=400, pad_d=Dp)
+        probs.append(prob)
+    b = pp.stack_problems(probs)
+    assert int(b.d_last.min()) < 12 < int(b.d_last.max())
+    edges = pp.to_device(edge_table(plan), cuda_device)
+    E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
+    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    groups = pp.sm3_wgroups(plan)
+    p3, tot3 = fk.backward_sm3(*args)
+    got = fk.backward_sm3(*args, stages=4, wgroups=groups)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(F, fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last,
+                                                     b.start, b.tp_scalar),
+                               rtol=1e-5, atol=1e-3)
+    want = fk.backward_sm3_ref(*args, 4, groups)
+    for p, tot in ((p3, tot3), got[:2]):
+        torch.testing.assert_close(p, want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(tot, want[1], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=1e-3)
+    assert float(p3.sum()) > 0.25 * float(b.d_last.sum())

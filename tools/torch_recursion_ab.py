@@ -1,0 +1,276 @@
+"""Time the PyTorch port's forward and backward kernels against an earlier
+version of their source, and at other lanes per thread, on one CUDA card.
+
+    python3 tools/torch_recursion_ab.py [--rounds 5] [--reps 10]
+        [--parent DIR] [--builds as_built,lanes2,lanes4,parent]
+
+Builds csrc/fb_sm3.cu as it is ("as_built"), with LANES_PER_THREAD 2 and 4
+("lanes2", "lanes4": a recursion block of W / 2 or W / 4 threads) and, with
+``--parent DIR``, DIR's cpecan_signal_tpu_torch/csrc/fb_sm3.cu ("parent": an
+unpacked earlier commit, e.g. ``git archive <commit> | tar -x -C
+.scratch/parent``), side by side with the library's own flags, and prints
+ptxas's registers and spills of each.  It then times, on the same CUDA
+tensors (chip_smoke.py's kernel problems, W = 128, Dp = 4096, B = 64):
+
+  * forward, forward5, forwardE: the threeState forward, and the fiveState
+    and echelon forwards of the problems below;
+  * forwardV, stage3V: the vanilla forward and stage-3 backward (the CLIs'
+    default machine; chip_smoke.py's vanilla problems);
+  * stage3, stage4: the threeState backward at stage 3 and stage 4;
+  * pgroups: the fiveState stage 4 with one posterior channel per to-state;
+  * pstates: the echelon stage-3 backward with its 5 posterior channels at
+    Dp = 1024.
+
+Each round times the builds in one order and then in the reverse order,
+each time the mean of ``--reps`` launches by CUDA events.  Every build's
+outputs must equal the as-built one's (F, p, totals, exits and gacc bit for
+bit; stats to the stage-4 tolerance of chip_smoke.py), else it exits
+nonzero.  The last line is a JSON object: per run and build the median ms,
+the spread (max - min) / median over its times, and each build's median
+over the last build's.  A parent whose backward entry points take no
+workspace is called without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+LANES = "#define LANES_PER_THREAD 1"
+BUILDS = ("as_built", "lanes2", "lanes4")
+W, DP, B = 128, 4096, 64
+PSTATES_DP = 1024
+WORK_ENTRIES = ("fb_backward_sm3", "fb_backward_sm3_em", "fb_backward_sm3_pgroups")
+
+
+class NoWorkspaceLib:
+    """A library whose backward entry points predate the workspace: the
+    wrapper's workspace pointer (the argument before the device) is dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in WORK_ENTRIES:
+            return fn
+        return lambda *args: fn(*args[:-3], *args[-2:])
+
+
+def bind_parent(so: Path, text: str):
+    """Bind an earlier library: the entry points its source defines, the
+    backward ones without the workspace if it takes none."""
+    from cpecan_signal_tpu_torch.ops import _build
+
+    names = [n for n in _build._SIGNATURES if n in text]
+    if "float* work" in text:
+        return _build.bind(so, names)
+    lib = ctypes.CDLL(str(so))
+    for name in names:
+        argtypes, restype = _build._SIGNATURES[name]
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes[:-3] + argtypes[-2:] if name in WORK_ENTRIES else argtypes
+        fn.restype = restype
+    return NoWorkspaceLib(lib)
+
+
+def build_variants(tmp: Path, names, parent: Path | None = None) -> dict:
+    """{build: lib} for ``names`` (of BUILDS and "parent"), compiled side by
+    side."""
+    import chip_smoke
+    from cpecan_signal_tpu_torch.ops import _build
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    if [p.name for p in sources] != ["fb_sm3.cu"]:
+        raise SystemExit(f"expected csrc/fb_sm3.cu alone, found {sources}")
+    src = sources[0].read_text()
+    if src.count(LANES) != 1:
+        raise SystemExit(f"expected one {LANES!r} in fb_sm3.cu")
+    texts = {"as_built": src,
+             "lanes2": src.replace(LANES, "#define LANES_PER_THREAD 2"),
+             "lanes4": src.replace(LANES, "#define LANES_PER_THREAD 4")}
+    if parent is not None:
+        texts["parent"] = (parent / "cpecan_signal_tpu_torch/csrc/fb_sm3.cu").read_text()
+    texts = {name: texts[name] for name in names}
+    procs = {}
+    for name, text in texts.items():
+        cu, so = tmp / f"{name}.cu", tmp / f"lib{name}.so"
+        cu.write_text(text)
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{out}")
+        for line in chip_smoke.ptxas_lines(out):
+            if "emissions" not in line:
+                print(f"ptxas {name}: {line}", flush=True)
+        libs[name] = (bind_parent(so, texts[name]) if name == "parent"
+                      else _build.bind(so))
+    return libs
+
+
+def profile_kernels(runs, use, reps: int = 3) -> None:
+    """Device milliseconds per launch of each CUDA kernel in each run of the
+    as-built build (torch.profiler), so that a wrapper that launches several
+    kernels (the backward: recursion, epilogue, carry) shows its parts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    use("as_built")
+    for k, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        parts = []
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+            if t and "kernel" in ev.key:
+                parts.append(f"{ev.key.split('(')[0]} {t / 1e3 / reps:.3f} ms x{ev.count // reps}")
+        print(f"profile {k}: " + ("; ".join(parts) or "no device time"), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of an unpacked earlier commit to time against")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print each run's device time per CUDA kernel "
+                    "(torch.profiler, as-built build)")
+    ap.add_argument("--builds", default=None,
+                    help="comma-separated builds to time (default: as_built, "
+                    "lanes2, lanes4, and parent with --parent)")
+    args = ap.parse_args()
+    builds = tuple(args.builds.split(",")) if args.builds else (
+        BUILDS + (("parent",) if args.parent else ()))
+    if builds[0] != "as_built" or ("parent" in builds) != (args.parent is not None):
+        ap.error("--builds starts with as_built, and names parent with --parent only")
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no usable CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine.plan import edge_table
+    from cpecan_signal_tpu_torch.ops import _build
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    card = chip_smoke.card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    device = torch.device("cuda")
+    rng = np.random.default_rng(chip_smoke.SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants(Path(tmp), builds, args.parent)
+        pore = syn.write_pore_model(str(Path(tmp) / "synthetic.model"), rng)
+        plan, b = chip_smoke.kernel_problems(pore, W, DP, B, rng, device)
+        plan5, b5 = chip_smoke.five_problems(chip_smoke.nucleotide_set(tmp), W, DP,
+                                             chip_smoke.FIVE_SHAPES[-1][2], B, device)
+    planE, bE = chip_smoke.generic_problems(pore, "echelon", W, PSTATES_DP, B, rng, device)
+    planV, bV = chip_smoke.generic_problems(pore, "vanilla", W, DP, B, rng, device)
+
+    def use(name):   # the wrappers launch through _build.load_library()
+        _build.load_library = lambda: libs[name]
+
+    use("as_built")
+    edges = pp.to_device(edge_table(plan), device)
+    E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, DP)
+    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    bargs = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    edges5 = pp.to_device(edge_table(plan5), device)
+    F5 = fk.forward_sm3(edges5, b5.E, b5.diag_scalars, b5.d_last, b5.start, b5.tp_scalar)
+    edgesV = pp.to_device(edge_table(planV), device)
+    FV = fk.forward_sm3(edgesV, bV.E, bV.diag_scalars, bV.d_last, bV.start, bV.tp_scalar)
+    edgesE = pp.to_device(edge_table(planE), device)
+    FE = fk.forward_sm3(edgesE, bE.E, bE.diag_scalars, bE.d_last, bE.start, bE.tp_scalar)
+    runs = {
+        "forward": lambda: (fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start,
+                                           b.tp_scalar),),
+        "forward5": lambda: (fk.forward_sm3(edges5, b5.E, b5.diag_scalars, b5.d_last,
+                                            b5.start, b5.tp_scalar),),
+        "forwardE": lambda: (fk.forward_sm3(edgesE, bE.E, bE.diag_scalars, bE.d_last,
+                                            bE.start, bE.tp_scalar),),
+        "forwardV": lambda: (fk.forward_sm3(edgesV, bV.E, bV.diag_scalars, bV.d_last,
+                                            bV.start, bV.tp_scalar),),
+        "stage3V": lambda: fk.backward_sm3(edgesV, planV.match_state, bV.E, FV,
+                                           bV.diag_scalars, bV.d_last, bV.end,
+                                           bV.tp_scalar),
+        "stage3": lambda: fk.backward_sm3(*bargs),
+        "stage4": lambda: fk.backward_sm3(*bargs, stages=4, wgroups=pp.sm3_wgroups(plan)),
+        "pgroups": lambda: fk.backward_sm3(
+            edges5, plan5.match_state, b5.E, F5, b5.diag_scalars, b5.d_last, b5.end,
+            b5.tp_scalar, stages=4, wgroups=pp.sm3_wgroups(plan5),
+            pgroups=_to_state_pgroups(plan5)),
+        "pstates": lambda: fk.backward_sm3(
+            edgesE, planE.match_state, bE.E, FE, bE.diag_scalars, bE.d_last, bE.end,
+            bE.tp_scalar, pstates=chip_smoke.ECHELON_PSTATES),
+    }
+
+    outs = {}
+    for name in builds:
+        use(name)
+        outs[name] = {k: run() for k, run in runs.items()}
+    torch.cuda.synchronize()
+    for name in builds[1:]:
+        for k in runs:
+            a, u = outs["as_built"][k], outs[name][k]
+            same = [torch.equal(x, y) for x, y in zip(a[:4], u[:4])]
+            if len(a) == 5:
+                same.append(torch.allclose(a[4], u[4], atol=chip_smoke.STATS_ATOL,
+                                           rtol=chip_smoke.STATS_RTOL))
+            print(f"check {k} {name}: outputs equal {same}; max abs diff "
+                  + ", ".join(f"{float((x - y).abs().max()):.3g}" for x, y in zip(a, u)),
+                  flush=True)
+            if not all(same):
+                raise AssertionError(f"{k}: the {name} build's outputs differ")
+    del outs
+
+    if args.profile:
+        profile_kernels(runs, use)
+
+    times = {k: {name: [] for name in builds} for k in runs}
+    for r in range(args.rounds):
+        for name in builds + builds[::-1]:
+            use(name)
+            for k, run in runs.items():
+                times[k][name].append(chip_smoke.cuda_ms(run, args.reps))
+        print(f"round {r}: " + "; ".join(
+            f"{k} {name} " + ", ".join(f"{t:.3f}" for t in v[name][-2:])
+            for k, v in times.items() for name in v), flush=True)
+
+    result = {"card": card, "W": W, "Dp": DP, "B": B, "pstates_Dp": PSTATES_DP}
+    for k, v in times.items():
+        med = {name: statistics.median(ts) for name, ts in v.items()}
+        for name, ts in v.items():
+            result[f"{k}_{name}_ms"] = med[name]
+            result[f"{k}_{name}_spread"] = (max(ts) - min(ts)) / med[name]
+        base = builds[-1]
+        for name in med:
+            if name != base:
+                result[f"{k}_{name}_over_{base}"] = med[name] / med[base]
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

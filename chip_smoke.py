@@ -6,10 +6,13 @@ Builds the CUDA kernels of cpecan_signal_tpu_torch from csrc/ (and prints
 ptxas's registers and spills for each), holds each kernel against its plain
 PyTorch version on the card (narrow windows, and 1024-lane ones: a
 1024-thread recursion block) at the threeState, vanilla, echelon and
-fiveState plans, then drives the port's paths on 50 synthetic two-strand reads:
+fiveState plans (the emissions also with offsets off the band, the tile
+kernel's device-memory path), then drives the port's paths on 50 synthetic
+two-strand reads:
 
   * alignment: cli/signal_align -s (emissions, forward, stage-3 backward),
-    checked against the CPU plain path and timed;
+    checked against the CPU plain path and timed, and one 50 kb read, whose
+    emissions launch is also checked and timed alone with its bound;
   * training: cli/train_models, threeState, 3 EM iterations on the card
     (emissions, forward, stage-4 backward), the likelihood required not to
     fall once the first M-step has normalized the model, and one E-step
@@ -136,7 +139,6 @@ def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
     csrc/fb_sm3.cu and the launch's edge table (an exp or a log is 1).
     An edge adds each of its terms (emission class, per-cell channels,
     scalar transitions) to its source and logAdds the sum: terms + 14.
-    emissions: 4 Gaussians of 6, then 4 adds and clamps (threeState only).
     forward: its edges.  backward (stage 3): the recursion's edges, the
     middle edges of the match-through-diagonal correction, per state 11
     (3 adds forming the two logsumexps' terms, and in each a max, a
@@ -150,8 +152,6 @@ def ops_per_cell(kernel: str, edges, n_states: int = 0, n_post: int = 1,
     rows = edges.tolist()
     terms = [1 + sum(1 for v in r[4:] if v >= 0) for r in rows]
     edge_ops = sum(t + LADD_OPS for t in terms)
-    if kernel == "emissions":
-        return 28
     if kernel == "forward":
         return edge_ops
     middle = sum(t + LADD_OPS for t, r in zip(terms, rows) if r[0] == 1)
@@ -364,6 +364,118 @@ def grid_cells(E) -> int:
     return B * De * W
 
 
+def emission_inputs(rng, B: int, Dp: int, W: int, device, *, random_tiles=False,
+                    unaligned=False, w0_start=0, lY=None, cols=None):
+    """Inputs (x0, yr0, xarr, evr) of an emissions launch on ``device``: B
+    problems' x packs and event rows drawn at random, and the offsets that
+    readpath._pack_ds gives for random +-1 walks of w0 from about
+    ``w0_start`` (band offsets; lY drawn from ``lY``, default Dp/4..Dp/2).
+    The rows hold ``cols`` = (lXp, lYp) columns, by default Dp / 2 and Dp
+    and two windows on each side, in 16-byte units (``unaligned``: 1 and 3
+    floats more, so that no row starts on 16 bytes).  With ``random_tiles``
+    every other tile of the kernel's diagonals takes offsets anywhere, past
+    both ends of the rows."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch.engine import readpath as rp
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    lXp, lYp = cols or (Dp // 8 * 4 + 4 * W, Dp // 4 * 4 + 4 * W)
+    if unaligned:
+        lXp, lYp = lXp + 1, lYp + 3
+    steps = rng.choice([-1, 1], (B, Dp))
+    steps[:, 0] = 0
+    w0 = (w0_start + 2 * rng.integers(-20, 20, (B, 1)) + np.cumsum(steps, 1)).astype(np.int32)
+    lo, hi = lY or (Dp // 4, Dp // 2)
+    _ds, x0, yr0 = rp._pack_ds(torch.from_numpy(np.stack([w0, w0, w0 + 2 * W], 1)),
+                               torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32)),
+                               W, lXp, lYp)
+    if random_tiles:
+        odd = torch.from_numpy((np.arange(Dp + 1) // fk.emission_config(W)[0]) % 2 == 1)
+        n_odd = int(odd.sum())
+        x0[:, odd] = torch.from_numpy(rng.integers(-W - 5, lXp + 5, (B, n_odd)).astype(np.int32))
+        yr0[:, odd] = torch.from_numpy(rng.integers(-W - 5, lYp + 5, (B, n_odd)).astype(np.int32))
+    xarr = rng.normal(0, 3, (B, 13, lXp)).astype(np.float32)
+    evr = rng.normal(50, 10, (B, 2, lYp)).astype(np.float32)
+    return tuple(t.to(device) for t in (x0, yr0, torch.from_numpy(xarr), torch.from_numpy(evr)))
+
+
+def emissions_agree(E, E_ref) -> tuple[float, bool, bool]:
+    """(max abs error, equal bit for bit, within E_RTOL) of the kernel's E
+    against the plain version's."""
+    return (max_err(E, E_ref), bool((E == E_ref).all()),
+            bool(((E - E_ref).abs() <= E_RTOL * E_ref.abs()).all()))
+
+
+def emissions_bound(x0, yr0, xarr, evr, E) -> tuple[float, str]:
+    """bound() of one emissions launch: its inputs read once and E written
+    once, 28 f32 operations a cell of E (4 Gaussians of 6, then 4 adds and
+    clamps; csrc/fb_sm3.cu emit_cell)."""
+    return bound(28, nbytes(x0, yr0, xarr, evr, E), grid_cells(E))
+
+
+@contextlib.contextmanager
+def recording_emissions(fk, calls: list):
+    """Within the block, each call of fk.emissions_sm3 appends its arguments
+    to ``calls`` (the call itself is made as before)."""
+    real = fk.emissions_sm3
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    fk.emissions_sm3 = record
+    try:
+        yield
+    finally:
+        fk.emissions_sm3 = real
+
+
+def phase_emissions(device, rng, stats) -> None:
+    """The emissions kernel against its plain version off the band: every
+    other tile of diagonals with random offsets past both ends of the rows
+    (the tile kernel's device-memory path) at B = 64, W = 128, Dp = 4096 and
+    at W = 1024, and rows that do not start on 16 bytes.  Adds the errors
+    to ``stats``."""
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    out = []
+    for W, Dp, B, unaligned in ((128, 4096, 64, False), (1024, 512, 8, False),
+                                (128, 1000, 4, True)):
+        x0, yr0, xarr, evr = emission_inputs(rng, B, Dp, W, device, random_tiles=True,
+                                             unaligned=unaligned)
+        err, equal, ok = emissions_agree(fk.emissions_sm3(x0, yr0, xarr, evr, W, Dp),
+                                         fk.emissions_sm3_ref(x0, yr0, xarr, evr, W, Dp))
+        out.append(f"W={W} Dp={Dp} B={B}{' unaligned rows' if unaligned else ''}: "
+                   f"err {err:.3g}, equal {equal}, ok {ok}")
+        if not ok:
+            raise AssertionError(f"emissions disagree with the plain version off the "
+                                 f"band: {out[-1]}")
+        stats["emissions"]["max_abs_err"] = max(stats["emissions"]["max_abs_err"], err)
+    print(f"emissions, random offsets in every other tile (rtol {E_RTOL}): "
+          + "; ".join(out), flush=True)
+
+
+def phase_long_emissions(args, card: str, stats) -> None:
+    """The 50 kb read's emissions launch (``args`` as the path called it):
+    against the plain version, timed, with its bound."""
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    x0, yr0, xarr, evr, W, Dp = args
+    E = fk.emissions_sm3(*args)
+    E_ref, plain = timed_once(lambda: fk.emissions_sm3_ref(*args))
+    err, equal, ok = emissions_agree(E, E_ref)
+    ms = cuda_ms(lambda: fk.emissions_sm3(*args), 20)
+    bound_ms, by = emissions_bound(x0, yr0, xarr, evr, E)
+    print(f"emissions 50 kb read: W={W} Dp={Dp} B={x0.shape[0]}: ms {ms:.4f}, bound "
+          f"{bound_ms:.4f} ({by}), plain {plain:.3f}; err {err:.3g}, equal {equal}, "
+          f"ok {ok}; card {card}", flush=True)
+    if not ok:
+        raise AssertionError("emissions of the 50 kb read disagree with the plain version")
+    stats["emissions"]["max_abs_err"] = max(stats["emissions"]["max_abs_err"], err)
+
+
 def phase_kernels(pore, device, rng) -> dict:
     """Each kernel against its plain version on the same CUDA tensors at B =
     64 and (W, Dp) in KERNEL_SHAPES (the stage-4 backward where W = 128 or
@@ -454,9 +566,7 @@ def phase_kernels(pore, device, rng) -> dict:
             fwd_in, bwd_in = recursion_inputs(E, F, b.diag_scalars, dl,
                                               nbytes(dl, edges, b.tp_scalar))
             S = plan.n_states
-            moved = {"emissions": (ops_per_cell("emissions", edges),
-                                   nbytes(b.x0, b.yr0, b.xarr, b.evr, E), grid_cells(E)),
-                     "forward": (ops_per_cell("forward", edges),
+            moved = {"forward": (ops_per_cell("forward", edges),
                                  fwd_in + nbytes(b.start, F), cells),
                      "backward": (ops_per_cell("backward", edges, S),
                                   bwd_in + nbytes(b.end, P, T), cells),
@@ -464,10 +574,30 @@ def phase_kernels(pore, device, rng) -> dict:
                                      bwd_in + nbytes(b.end, *em_out), cells)}
             for k in ms:
                 stats[k]["ms"], stats[k]["plain_ms"] = ms[k], plain[k]
-                stats[k]["bound_ms"], stats[k]["bound_by"] = bound(*moved[k])
+                stats[k]["bound_ms"], stats[k]["bound_by"] = (
+                    emissions_bound(b.x0, b.yr0, b.xarr, b.evr, E) if k == "emissions"
+                    else bound(*moved[k]))
         del E, F, P, T, E_ref, F_ref, P_ref, T_ref, b, em_out
         torch.cuda.empty_cache()
     return stats
+
+
+def long_read_jobs(pore, ref_seq, rng, params):
+    """(events, split jobs) of the 50 kb read: 50000 bases evolved from the
+    reference (4 % substitutions, 2 % indels), its simulated events, anchors
+    at every 40th pair of its true path; it makes one unsplit job."""
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.engine.align import collect_split_jobs
+    from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3
+
+    target = ""
+    while len(target) < 50000:
+        target += syn.evolve_sequence(ref_seq, rng, 0.04, 0.02)
+    target = target[:50000]
+    events, path = syn.simulate_events(pore, target, rng)
+    anchors = syn.path_anchors(path, len(target) - 5, len(events), 40)
+    return events, collect_split_jobs(lambda t, e: make_signal_sm3(pore, t, e), target,
+                                      events, anchors, params)
 
 
 def read_jobs(paths, ref_seq, model_path, params, sm_type="threeState"):
@@ -1197,11 +1327,9 @@ def main() -> int:
 
     from cpecan_signal_tpu_torch import synthetic as syn
     from cpecan_signal_tpu_torch.cli import signal_align
-    from cpecan_signal_tpu_torch.engine.align import collect_split_jobs
     from cpecan_signal_tpu_torch.engine.batch_align import (batch_align_jobs,
                                                             batch_align_stream)
     from cpecan_signal_tpu_torch.models.params import cli_defaults
-    from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3
     from cpecan_signal_tpu_torch.ops import _build
     from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
@@ -1233,6 +1361,7 @@ def main() -> int:
         model = os.path.join(tmp, "synthetic.model")
         pore = syn.write_pore_model(model, rng)
         stats = phase_kernels(pore, device, rng)
+        phase_emissions(device, rng, stats)
         phase_wide(pore, device, rng, stats)
         phase_generic_kernels(pore, device, rng, stats)
         nuc = nucleotide_set(tmp)
@@ -1290,15 +1419,10 @@ def main() -> int:
             times.append(time.perf_counter() - t0)
         t_med = sorted(times)[1]
 
-        target = ""
-        while len(target) < 50000:
-            target += syn.evolve_sequence(ref_seq, data_rng, 0.04, 0.02)
-        target = target[:50000]
-        events, path = syn.simulate_events(pore, target, data_rng)
-        anchors = syn.path_anchors(path, len(target) - 5, len(events), 40)
-        long_jobs = collect_split_jobs(lambda t, e: make_signal_sm3(pore, t, e), target,
-                                       events, anchors, params)
-        batch_align_jobs(long_jobs, params.threshold, device=device)
+        events, long_jobs = long_read_jobs(pore, ref_seq, data_rng, params)
+        long_calls = []
+        with recording_emissions(fk, long_calls):
+            batch_align_jobs(long_jobs, params.threshold, device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = batch_align_jobs(long_jobs, params.threshold, device=device)
@@ -1312,6 +1436,8 @@ def main() -> int:
               f"{50 / t_med:.2f} reads/s, {n_ev / t_med:.0f} events/s; 50 kb read "
               f"({len(events)} events, {len(long_jobs)} split jobs, {n_pairs} pairs) "
               f"{t_long:.4f} s; card {card}", flush=True)
+        phase_long_emissions(max(long_calls, key=lambda a: a[5]), card, stats)
+        del long_calls
 
         # --- training path through the CLI, and one E-step against the CPU
         path_launches = [launches, phase_train(tmp, reads, ref, model, fk)]

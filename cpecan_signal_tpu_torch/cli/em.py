@@ -14,7 +14,8 @@ emissions, cPecanEm.py:19-105) and the lastz scoring-matrix export
 
 Not ported: the host f64 E-step (``engine="host"``) and the re-banding
 between iterations (``update_band``, which realigns with the host engine),
-ROADMAP queue 1 item 10; several processes (SIGALIGN_COORDINATOR), item 11.
+ROADMAP queue 1, 'Host engines'; several processes (SIGALIGN_COORDINATOR),
+ROADMAP queue 1, 'Several processes'.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from ..utils.device import resolve_device
 
 SYMBOL_NUMBER = 4
 UNPORTED = {
-    "host": "the host f64 E-step engine is ROADMAP queue 1 item 10",
+    "host": "the host f64 E-step engine is ROADMAP queue 1, 'Host engines'",
     "update_band": "update_band re-bands with the host f64 realign engine, "
-                   "ROADMAP queue 1 item 10",
-    "coordinator": "multi-process EM (SIGALIGN_COORDINATOR) is ROADMAP queue 1 item 11",
+                   "ROADMAP queue 1, 'Host engines'",
+    "coordinator": ("multi-process EM (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
+                    "'Several processes'"),
 }
 
 

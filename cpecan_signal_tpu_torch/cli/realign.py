@@ -31,7 +31,7 @@ from ..models.state_machines import bind_symbol_sequences, make_symbol_sm5
 from ..utils.device import resolve_device
 
 HOST_ENGINE = ("the host f64 realign engine (realign_record, --engine host, "
-               "--matchGamma) is ROADMAP queue 1 item 10")
+               "--matchGamma) is ROADMAP queue 1, 'Host engines'")
 
 
 def load_sequences(paths: list[str]) -> dict[str, str]:
@@ -238,8 +238,8 @@ def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
 
 
 def realign_record(*_args, **_kwargs):
-    """One record through the host f64 engine: not ported (ROADMAP queue 1
-    item 10); the port realigns through ``realign_records_batched``."""
+    """One record through the host f64 engine: not ported (ROADMAP queue 1,
+    'Host engines'); the port realigns through ``realign_records_batched``."""
     raise NotImplementedError(HOST_ENGINE)
 
 

@@ -1,10 +1,11 @@
 """Multi-read alignment CLI: the signalAlign.py equivalent (port of
 cli/signal_align.py:104-204, 207-363, single process).
 
-Enumerates npRead files (shuffled, capped at --nb_files), pools every read's
-template and complement split jobs into device batches (one process, one
-device, engine/batch_align), and writes the 15-column posterior TSV
-(signalAlign.py:54-146).  The machine is vanilla by default, threeState
+Enumerates fast5 and npRead files (shuffled, capped at --nb_files; a fast5
+read goes through io/fast5, which imports h5py only then), pools every
+read's template and complement split jobs into device batches (one
+process, one device, engine/batch_align), and writes the 15-column
+posterior TSV (signalAlign.py:54-146).  The machine is vanilla by default, threeState
 (-s), fourState or echelon.  Every machine takes the pooled route,
 echelon included (the JAX CLI aligns echelon reads one at a time).
 """
@@ -68,7 +69,11 @@ def _batch_align_all(work, device, timing=None):
             # per-read containment: a corrupt read degrades to a retryable
             # 'error:' result instead of ending the whole batch
             try:
-                npread = load_npread(path)
+                if path.endswith(".fast5"):
+                    from ..io.fast5 import fast5_to_npread
+                    npread = fast5_to_npread(path)
+                else:
+                    npread = load_npread(path)
                 guide = guide_alignment(ref_seq, npread.twoD_read,
                                         params.constraint_diagonal_trim)
                 if guide is None:
@@ -122,7 +127,7 @@ def _batch_align_all(work, device, timing=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="align many reads (signalAlign equivalent)")
     ap.add_argument("--file_directory", "-d", required=True,
-                    help="directory of .npRead files (or a glob)")
+                    help="directory of .fast5 and .npRead files (or a glob)")
     ap.add_argument("--ref", "-r", required=True)
     ap.add_argument("--output_location", "-o", required=True)
     ap.add_argument("--templateModel", "-T", required=True)
@@ -148,10 +153,10 @@ def main(argv=None):
     require_ported(sm_type)
     if args.jobs > 1:
         raise NotImplementedError("--jobs > 1 (per-read worker processes) is not "
-                                  "ported: ROADMAP queue 1 item 11")
+                                  "ported: ROADMAP queue 1, 'Several processes'")
     if os.environ.get("SIGALIGN_COORDINATOR") is not None:
         raise NotImplementedError("multi-host launch (SIGALIGN_COORDINATOR) is not "
-                                  "ported: ROADMAP queue 1 item 11")
+                                  "ported: ROADMAP queue 1, 'Several processes'")
     device = resolve_device()
     contig, ref_seq = read_first_sequence(args.ref)
     params = cli_defaults().with_(
@@ -161,7 +166,8 @@ def main(argv=None):
         params = params.with_(diagonal_expansion=2, anchor_matrix_bigger_than_this=1 << 62)
 
     if os.path.isdir(args.file_directory):
-        paths = sorted(glob.glob(os.path.join(args.file_directory, "*.npRead")))
+        paths = sorted(glob.glob(os.path.join(args.file_directory, "*.fast5"))
+                       + glob.glob(os.path.join(args.file_directory, "*.npRead")))
     else:
         paths = sorted(glob.glob(args.file_directory))
     random.shuffle(paths)  # signalAlign.py:92 shuffles before capping

@@ -36,11 +36,13 @@ from .vanilla_align import guide_alignment, rebased_anchor_pairs
 
 # what the JAX CLI trains that the port does not yet
 UNPORTED = {
-    "vanilla": "vanilla EM is ROADMAP queue 1 item 9",
-    "threeStateHdp": "threeStateHdp EM is ROADMAP queue 1 item 9",
-    "host": "the host f64 E-step engine is ROADMAP queue 1 item 10",
-    "jobs": "--jobs > 1 (host worker processes) is ROADMAP queue 1 item 10",
-    "coordinator": "multi-host training (SIGALIGN_COORDINATOR) is ROADMAP queue 1 item 11",
+    "vanilla": "vanilla EM is ROADMAP queue 1, 'vanilla EM'",
+    "threeStateHdp": ("threeStateHdp EM is ROADMAP queue 1, 'The hdp package, "
+                      "threeStateHdp alignment and HDP EM'"),
+    "host": "the host f64 E-step engine is ROADMAP queue 1, 'Host engines'",
+    "jobs": "--jobs > 1 (host worker processes) is ROADMAP queue 1, 'Host engines'",
+    "coordinator": ("multi-host training (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
+                    "'Several processes'"),
 }
 # main's options that only threeStateHdp training reads
 HDP_FLAGS = ("templateHdp", "complementHdp", "assignmentThreshold", "samples",

@@ -40,7 +40,8 @@ def require_ported(sm_type: str) -> None:
     """threeStateHdp alignment (a NanoporeHDP density) is not ported yet."""
     if sm_type == "threeStateHdp":
         raise NotImplementedError("threeStateHdp alignment is not ported yet: "
-                                  "ROADMAP queue 1 item 9 (with the hdp package)")
+                                  "ROADMAP queue 1, 'The hdp package, threeStateHdp "
+                                  "alignment and HDP EM'")
 
 
 def guide_alignment(ref_seq: str, read_seq: str, trim: int) -> CigarRecord | None:

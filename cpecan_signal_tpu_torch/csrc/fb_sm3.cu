@@ -65,6 +65,7 @@
 // under EPI_THREADS; the carry kernel 60 under RECURSION_THREADS.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define NEG_INF (-1e30f)
@@ -240,52 +241,257 @@ __device__ void load_edges(const int* __restrict__ edges, const float* __restric
 // Kernel 1: emissions
 // ---------------------------------------------------------------------------
 // Replaces cpecan_signal_tpu/ops/pallas_fb.py:emissions_sm3 (_emissions_kernel).
-// Bound: device-memory bytes.  Per cell it reads 15 floats (13 x-pack rows,
-// 2 event rows) and writes 3, with a few flops in between.  Design: one
-// thread per (problem, diagonal, lane), one block per (diagonal, problem);
-// consecutive lanes read consecutive addresses of every row (the x slice is
-// contiguous along a diagonal, the reversed event slice too), so each row
-// load is one coalesced transaction per warp.  The x pack of a problem is
-// re-read by neighbouring diagonals and stays in L2.
-__global__ void emissions_kernel(const int* __restrict__ x0,
-                                 const int* __restrict__ yr0,
-                                 const float* __restrict__ xarr,
-                                 const float* __restrict__ evr,
-                                 float* __restrict__ E, int Dp, int De, int W,
-                                 int lXp, int lYp, int nrow) {
-  const int d = blockIdx.x;
-  const int b = blockIdx.y;
-  float* out = E + ((size_t)b * De + d) * 3 * W;
-  if (d >= Dp) {  // zero sentinel rows read by the backward kernel
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {
-      out[j] = 0.0f;
-      out[W + j] = 0.0f;
-      out[2 * W + j] = 0.0f;
+// Bound: device-memory bytes, nearly all of them E's own writes (3 floats a
+// cell against the inputs' 15 floats a column of the x pack and the event
+// rows, and two offsets a diagonal).  The first version ran one block per
+// (diagonal, problem) and read each diagonal's 13 x-pack and 2 event slices
+// of W floats: 5x the bytes it wrote, which came from L2, because the
+// neighbouring diagonals whose slices overlap in W - 1 lanes ran on other
+// SMs (0.351 ms at W = 128, Dp = 4096, B = 64 on an H100 80GB HBM3 at
+// 700.00 W, against a bound of 0.124 ms: about the L2's rate for those
+// reads).
+// Design: one block per (problem, tile of EMIT_TILE = K consecutive
+// diagonals).  Along a band x0 steps by 0 or +1 a diagonal and yr0 by 0 or
+// -1 (the window's w0 steps by +-1), so a tile's slices lie within K - 1 + W
+// columns of each row.  The block reads its tile's offsets, takes the span
+// of the clamped columns, and stages that span of the 13 x rows and the 2
+// event rows once in shared memory: the 16-byte aligned middle of each row
+// by a bulk asynchronous copy (cp.async.bulk, TMA) completing on an
+// mbarrier, the <= 3 floats at either end by plain loads.  It then computes
+// the tile's K x W cells from shared memory, thread t at lane t % W, and
+// writes E[b, d0 : d0 + K], K x 3 x W contiguous floats, in one sweep (a
+// warp stores 128 contiguous bytes of a channel row; 4 lanes a thread with
+// 16-byte stores would read the staged rows with a stride of 4 floats, a
+// 4-way bank conflict).  A tile whose span is wider than the staged rows
+// (offsets off a band), or whose rows do not start on 16 bytes, reads its
+// slices from device memory with the same arithmetic.  Rows d >= Dp are
+// zero: the backward reads them past the end.
+// Measured on an H100 80GB HBM3 at 700.00 W (tools/torch_recursion_ab.py,
+// the first version in the same call; E equal to its E bit for bit): 0.150
+// ms at W = 128, Dp = 4096, B = 64 (first version 0.342; bound 0.124, the
+// bytes), 0.061 ms for a 50 kb read (W = 128, Dp = 106496, B = 1; 0.143),
+// 0.151 ms at W = 1024, Dp = 512, B = 64 (0.296).  Staging by cp.async of 16 bytes
+// a thread took as long as the bulk copies; streaming stores (__stcs) took
+// 4-9 % off and cost the forward that reads E nothing, even where E fits in
+// the L2; 256 threads a block 2 % more, 1024 threads 14 % more.
+#define EMIT_TILE 64         // diagonals of an emissions block (K)
+#define EMIT_THREADS 512     // threads of an emissions block, whole windows
+#define EMIT_STREAM_STORE 1  // write E with __stcs (1) or plain stores (0)
+#define EMIT_ROWS (N_XPARAMS + 2)  // staged rows: the x pack, then the 2 event rows
+
+// Floats of a staged row: a span of at most K - 1 + W columns from the
+// 16-byte boundary at or before it (<= 3 floats earlier), in 16-byte units.
+__host__ __device__ __forceinline__ int emit_row_floats(int W) {
+  return (EMIT_TILE - 1 + W + 3 + 3) & ~3;
+}
+
+// Threads of an emissions block: whole windows, EMIT_THREADS / W of them
+// (one if W >= EMIT_THREADS).
+__host__ __device__ __forceinline__ int emit_threads(int W) {
+  return W * (W < EMIT_THREADS ? EMIT_THREADS / W : 1);
+}
+
+// Dynamic shared bytes of an emissions block: the mbarrier (16 bytes), the
+// staged rows, the tile's x0 and yr0, and the four span bounds.
+__host__ __device__ __forceinline__ int emit_smem(int W) {
+  return 16 + 4 * (EMIT_ROWS * emit_row_floats(W) + 2 * EMIT_TILE + 4);
+}
+
+struct EmitParams {
+  const int* x0;
+  const int* yr0;
+  const float* xarr;
+  const float* evr;
+  float* E;
+  int Dp, De, W, lXp, lYp, nrow;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects ``bytes`` of asynchronous copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Bulk copy (TMA) of ``bytes`` (a multiple of 16; both addresses on 16
+// bytes) from device memory into this block's shared memory, completing on
+// the mbarrier.
+__device__ __forceinline__ void bulk_to_shared(void* dst, const void* src, unsigned bytes,
+                                               unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void emit_store(float* p, float v) {
+#if EMIT_STREAM_STORE
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// One cell at lane j of the output row o (3 x W floats): channel 0 gapX,
+// 1 match, 2 gapY.  xb[r * xst + xi] is x-pack row r at the clamped column,
+// yb[k * yst + yi] event row k (shared rows or device memory).
+__device__ __forceinline__ void emit_cell(const float* xb, int xst, const float* yb,
+                                          int yst, int xi, int yi, float* o, int W,
+                                          int j) {
+  const float mean = yb[yi];
+  const float noise = yb[yst + yi];
+  float g[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float obs = (k & 1) ? noise : mean;
+    const float* r = xb + 3 * k * xst + xi;
+    const float a = __fmul_rn(__fsub_rn(obs, r[0]), r[xst]);
+    g[k] = fmaxf(__fsub_rn(r[2 * xst], __fmul_rn(__fmul_rn(0.5f, a), a)), NEG_INF);
+  }
+  emit_store(o + j, xb[12 * xst + xi]);                              // gapX
+  emit_store(o + W + j, fmaxf(__fadd_rn(g[0], g[1]), NEG_INF));      // match
+  emit_store(o + 2 * W + j, fmaxf(__fadd_rn(g[2], g[3]), NEG_INF));  // gapY
+}
+
+// The tile's rows i < nt (i >= n: zero), thread t at lane t % W; the rows'
+// clamped columns less xsh / ysh index xb / yb.
+__device__ __forceinline__ void emit_tile(const EmitParams& p, const int* sx0,
+                                          const int* sy0, const float* xb, int xst,
+                                          int xsh, const float* yb, int yst, int ysh,
+                                          float* out, int n, int nt) {
+  const int W = p.W, j = threadIdx.x % W, step = blockDim.x / W;
+  for (int i = threadIdx.x / W; i < nt; i += step) {
+    float* o = out + (size_t)i * 3 * W;
+    if (i >= n) {
+      emit_store(o + j, 0.0f);
+      emit_store(o + W + j, 0.0f);
+      emit_store(o + 2 * W + j, 0.0f);
+      continue;
     }
+    const int xi = min(max(sx0[i] + j, 0), p.lXp - 1) - xsh;
+    const int yi = min(max(sy0[i] + j, 0), p.lYp - 1) - ysh;
+    emit_cell(xb, xst, yb, yst, xi, yi, o, W, j);
+  }
+}
+
+__global__ void __launch_bounds__(1024) emissions_kernel(EmitParams p) {
+  extern __shared__ __align__(16) float esm[];
+  constexpr int K = EMIT_TILE;
+  const int W = p.W, RS = emit_row_floats(W), tid = threadIdx.x;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(esm);
+  float* rows = esm + 4;
+  int* sx0 = reinterpret_cast<int*>(rows + EMIT_ROWS * RS);
+  int* sy0 = sx0 + K;
+  int* span = sy0 + K;  // min and max of the tile's x0, then of its yr0
+  const int b = blockIdx.y, d0 = blockIdx.x * K;
+  const int n = min(K, p.Dp - d0);  // the tile's diagonals below Dp (<= 0: none)
+  const int nt = min(K, p.De - d0);
+  float* out = p.E + ((size_t)b * p.De + d0) * 3 * W;
+  const float* xa = p.xarr + (size_t)b * N_XPARAMS * p.lXp;
+  const float* ev = p.evr + (size_t)b * 2 * p.lYp;
+
+  if (tid == 0) {
+    span[0] = span[2] = INT_MAX;
+    span[1] = span[3] = INT_MIN;
+    mbar_init(bar);
+  }
+  __syncthreads();
+  for (int i = tid; i < ((n + 31) & ~31); i += blockDim.x) {  // whole warps
+    const bool v = i < n;
+    const int xs = v ? p.x0[(size_t)b * p.nrow + d0 + i] : 0;
+    const int ys = v ? p.yr0[(size_t)b * p.nrow + d0 + i] : 0;
+    if (v) {
+      sx0[i] = xs;
+      sy0[i] = ys;
+    }
+    const int xmn = __reduce_min_sync(0xffffffffu, v ? xs : INT_MAX);
+    const int xmx = __reduce_max_sync(0xffffffffu, v ? xs : INT_MIN);
+    const int ymn = __reduce_min_sync(0xffffffffu, v ? ys : INT_MAX);
+    const int ymx = __reduce_max_sync(0xffffffffu, v ? ys : INT_MIN);
+    if ((i & 31) == 0) {
+      atomicMin(span, xmn);
+      atomicMax(span + 1, xmx);
+      atomicMin(span + 2, ymn);
+      atomicMax(span + 3, ymx);
+    }
+  }
+  __syncthreads();
+  // the span of clamped columns each row needs
+  const int xlo = min(max(span[0], 0), p.lXp - 1);
+  const int xhi = (int)min(max((long long)span[1] + W - 1, 0ll), (long long)p.lXp - 1);
+  const int ylo = min(max(span[2], 0), p.lYp - 1);
+  const int yhi = (int)min(max((long long)span[3] + W - 1, 0ll), (long long)p.lYp - 1);
+  const bool aligned = ((p.lXp | p.lYp) & 3) == 0 && ((uintptr_t)p.xarr & 15) == 0 &&
+                       ((uintptr_t)p.evr & 15) == 0;
+  const bool staged = n > 0 && aligned && xhi - xlo < K - 1 + W && yhi - ylo < K - 1 + W;
+  if (!staged) {
+    if (tid == 0) mbar_inval(bar);
+    emit_tile(p, sx0, sy0, xa, p.lXp, 0, ev, p.lYp, 0, out, n, nt);
     return;
   }
-  const int xs = x0[(size_t)b * nrow + d];
-  const int ys = yr0[(size_t)b * nrow + d];
-  const float* xa = xarr + (size_t)b * N_XPARAMS * lXp;
-  const float* ev = evr + (size_t)b * 2 * lYp;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const int xi = min(max(xs + j, 0), lXp - 1);
-    const int yi = min(max(ys + j, 0), lYp - 1);
-    const float mean = ev[yi];
-    const float noise = ev[lYp + yi];
-    float g[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float obs = (k & 1) ? noise : mean;
-      const float* r = xa + (size_t)(3 * k) * lXp + xi;
-      const float a = __fmul_rn(__fsub_rn(obs, r[0]), r[lXp]);
-      g[k] = fmaxf(__fsub_rn(r[2 * lXp], __fmul_rn(__fmul_rn(0.5f, a), a)),
-                   NEG_INF);
-    }
-    out[j] = xa[(size_t)12 * lXp + xi];                    // gapX
-    out[W + j] = fmaxf(__fadd_rn(g[0], g[1]), NEG_INF);     // match
-    out[2 * W + j] = fmaxf(__fadd_rn(g[2], g[3]), NEG_INF); // gapY
+
+  // shared row r holds the row's columns from its 16-byte boundary base
+  // <= lo on; the middle [a0, b0) arrives by bulk copies, the ends
+  // [lo, a0) and [b0, hi] (<= 3 columns each) by plain loads
+  const int xbase = xlo & ~3, ybase = ylo & ~3;
+  const int xa0 = min((xlo + 3) & ~3, xhi + 1), xb0 = max((xhi + 1) & ~3, xa0);
+  const int ya0 = min((ylo + 3) & ~3, yhi + 1), yb0 = max((yhi + 1) & ~3, ya0);
+  const unsigned xbytes = 4u * (xb0 - xa0), ybytes = 4u * (yb0 - ya0);
+  const unsigned total = N_XPARAMS * xbytes + 2 * ybytes;
+  if (tid == 0 && total > 0) {
+    mbar_expect(bar, total);
+    if (xbytes > 0)
+      for (int r = 0; r < N_XPARAMS; ++r)
+        bulk_to_shared(rows + r * RS + (xa0 - xbase), xa + (size_t)r * p.lXp + xa0, xbytes,
+                       bar);
+    if (ybytes > 0)
+      for (int k = 0; k < 2; ++k)
+        bulk_to_shared(rows + (N_XPARAMS + k) * RS + (ya0 - ybase),
+                       ev + (size_t)k * p.lYp + ya0, ybytes, bar);
   }
+  for (int q = tid; q < EMIT_ROWS * 8; q += blockDim.x) {
+    const int r = q >> 3, e = q & 7;
+    const bool isx = r < N_XPARAMS;
+    const int lo = isx ? xlo : ylo, hi = isx ? xhi : yhi, base = isx ? xbase : ybase;
+    const int c = e < 4 ? lo + e : (isx ? xb0 : yb0) + e - 4;
+    if (e < 4 ? c < (isx ? xa0 : ya0) : c <= hi) {
+      const float* src = isx ? xa + (size_t)r * p.lXp : ev + (size_t)(r - N_XPARAMS) * p.lYp;
+      rows[r * RS + (c - base)] = src[c];
+    }
+  }
+  if (total > 0) mbar_wait(bar, 0);
+  __syncthreads();
+  if (tid == 0) mbar_inval(bar);
+  emit_tile(p, sx0, sy0, rows, RS, xbase, rows + N_XPARAMS * RS, RS, ybase, out, n, nt);
 }
 
 // ---------------------------------------------------------------------------
@@ -1070,14 +1276,26 @@ void fb_launch_config(int S, int C, int W, int n_edges, int em, int* cfg) {
   cfg[3] = (int)smem;
 }
 
+// The emissions launch: diagonals a block (EMIT_TILE), floats of a staged
+// row, threads and dynamic shared bytes of a block at window width W.
+void fb_emissions_config(int W, int* cfg) {
+  cfg[0] = EMIT_TILE;
+  cfg[1] = emit_row_floats(W);
+  cfg[2] = emit_threads(W);
+  cfg[3] = emit_smem(W);
+}
+
 int fb_emissions_sm3(const int* x0, const int* yr0, const float* xarr,
                      const float* evr, float* E, int B, int Dp, int De, int W,
                      int lXp, int lYp, int nrow, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(De, B);
-  emissions_kernel<<<grid, W, 0, (cudaStream_t)stream>>>(
-      x0, yr0, xarr, evr, E, Dp, De, W, lXp, lYp, nrow);
+  if (W % 32 || W > 1024) return (int)cudaErrorInvalidValue;
+  err = allow_smem((const void*)emissions_kernel, emit_smem(W));
+  if (err != cudaSuccess) return (int)err;
+  const EmitParams ep = {x0, yr0, xarr, evr, E, Dp, De, W, lXp, lYp, nrow};
+  dim3 grid((De + EMIT_TILE - 1) / EMIT_TILE, B);
+  emissions_kernel<<<grid, emit_threads(W), emit_smem(W), (cudaStream_t)stream>>>(ep);
   return (int)cudaGetLastError();
 }
 

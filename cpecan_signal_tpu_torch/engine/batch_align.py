@@ -169,7 +169,8 @@ def _unsupported(job) -> NotImplementedError | None:
     if getattr(sm, "hdp_pack", None) is None and sm.spec.name != "threeStateHdp":
         return None
     return NotImplementedError(f"{sm.spec.name} jobs need threeStateHdp alignment, "
-                               "ROADMAP queue 1 item 9; the port aligns threeState, "
+                               "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment "
+                               "and HDP EM'; the port aligns threeState, "
                                "fourState, vanilla, echelon and fiveState jobs")
 
 

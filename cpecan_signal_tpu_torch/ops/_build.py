@@ -44,6 +44,9 @@ _SIGNATURES = {
     # (S, C, W, n_edges, stage 4?) -> 4 ints: ring slots, recursion shared
     # bytes, epilogue warps, epilogue shared bytes
     "fb_launch_config": ([_I] * 5 + [_P], None),
+    # W -> 4 ints: diagonals a block, floats of a staged row, threads and
+    # dynamic shared bytes of an emissions block
+    "fb_emissions_config": ([_I, _P], None),
 }
 
 

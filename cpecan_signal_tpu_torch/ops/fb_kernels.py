@@ -73,6 +73,28 @@ def epilogue_warps(S: int, W: int, n_edges: int, em: bool) -> tuple[int, int]:
     return n, n * per
 
 
+# the emissions kernel (csrc/fb_sm3.cu emit_row_floats, emit_threads,
+# emit_smem; reported on the card by fb_emissions_config)
+EMIT_TILE = 64               # diagonals of an emissions block
+EMIT_THREADS = 512           # threads of an emissions block, whole windows
+EMIT_ROWS = N_XPARAMS + 2    # staged rows: the x pack, then the 2 event rows
+
+
+def emission_config(W: int) -> tuple[int, int, int, int]:
+    """(diagonals a block K, floats of a staged row, threads, dynamic shared
+    bytes) of an emissions launch at window width W.  A block stages the 13
+    x-pack rows and the 2 event rows over its tile's span of columns, at
+    most K - 1 + W of them on a band, from the 16-byte boundary at or
+    before the span (<= 3 floats earlier), each row in 16-byte units; then
+    the mbarrier (16 bytes), the tile's x0 and yr0 and 4 span bounds.
+    Threads: whole windows, EMIT_THREADS // W of them (one if W >=
+    EMIT_THREADS)."""
+    row = (EMIT_TILE - 1 + W + 6) // 4 * 4
+    threads = W * (EMIT_THREADS // W if W < EMIT_THREADS else 1)
+    smem = 16 + 4 * (EMIT_ROWS * row + 2 * EMIT_TILE + 4)
+    return EMIT_TILE, row, threads, smem
+
+
 def backward_work_floats(B: int, Dp: int, S: int, W: int, G: int = 0,
                          n_edges: int = 0) -> int:
     """Floats of the backward workspace: b (B, Dp, S, W) from the recursion
@@ -489,7 +511,9 @@ def emissions_sm3(x0, yr0, xarr, evr, W: int, Dp: int) -> torch.Tensor:
     reversed event rows at yr0[b, d] + j give channel 0 = gapX (row 12),
     1 = match (Gauss(level) + Gauss(noise) on rows 0-5), 2 = gapY (rows
     6-11).  Rows >= Dp are zero: the backward pass reads them past the end.
-    Replaces ops/pallas_fb.emissions_sm3."""
+    On the card one block computes a tile of ``emission_config(W)[0]``
+    consecutive diagonals of a problem from its inputs staged in shared
+    memory.  Replaces ops/pallas_fb.emissions_sm3."""
     if not _on_cuda(x0, yr0, xarr, evr):
         return emissions_sm3_ref(x0, yr0, xarr, evr, W, Dp)
     B, _, lXp = xarr.shape

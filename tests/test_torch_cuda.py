@@ -449,9 +449,9 @@ def test_cuda_discrete_estep_matches_cpu(cuda_device):
 
 
 def test_cuda_launch_config_matches_wrappers(cuda_device):
-    """The C library sizes the recursion's E ring and the epilogue block as
-    ops/fb_kernels.ring_depth and epilogue_warps do (the CPU tests check
-    those at every plan and width)."""
+    """The C library sizes the recursion's E ring, the epilogue block and
+    the emissions block as ops/fb_kernels.ring_depth, epilogue_warps and
+    emission_config do (the CPU tests check those at every plan and width)."""
     import ctypes
 
     from cpecan_signal_tpu_torch.ops._build import load_library
@@ -464,6 +464,37 @@ def test_cuda_launch_config_matches_wrappers(cuda_device):
                 lib.fb_launch_config(S, C, W, n_edges, em, cfg)
                 assert tuple(cfg) == (fk.ring_depth(S, C, W)
                                       + fk.epilogue_warps(S, W, n_edges, bool(em)))
+    for W in range(32, 1025, 32):
+        lib.fb_emissions_config(W, cfg)
+        assert tuple(cfg) == fk.emission_config(W)
+
+
+@pytest.mark.parametrize("W, Dp, B, offsets", [
+    (128, 301, 4, "band"),        # Dp no multiple of the tile
+    (32, 40, 3, "band"),          # Dp below the tile
+    (1024, 512, 2, "band"),       # 1024 threads and 66 KB of shared memory a block
+    (128, 1000, 1, "band"),       # one problem
+    (128, 301, 4, "random"),      # every other tile off the band: device-memory path
+    (1024, 512, 2, "random"),
+    (64, 301, 2, "unaligned"),    # rows off 16 bytes: every tile from device memory
+])
+def test_cuda_emissions_match_plain_bit_for_bit(W, Dp, B, offsets, cuda_device):
+    """The tiled emissions kernel equals its plain version bit for bit on
+    band offsets (readpath._pack_ds of random +-1 walks, both clamps away)
+    and off the band (every other tile's offsets random past both ends of
+    the rows), at the launch shapes' edges."""
+    import chip_smoke
+
+    rng = np.random.default_rng(W + Dp + B)
+    x0, yr0, xarr, evr = chip_smoke.emission_inputs(
+        rng, B, Dp, W, cuda_device, random_tiles=offsets == "random",
+        unaligned=offsets == "unaligned")
+    E = fk.emissions_sm3(x0, yr0, xarr, evr, W, Dp)
+    E_ref = fk.emissions_sm3_ref(x0, yr0, xarr, evr, W, Dp)
+    torch.cuda.synchronize()
+    assert E.shape == (B, Dp + 2, 3, W)
+    assert torch.equal(E, E_ref), float((E - E_ref).abs().max())
+    assert (E[:, Dp:] == 0).all()
 
 
 @pytest.mark.parametrize("Dp", [256, 301])

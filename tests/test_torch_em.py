@@ -49,6 +49,8 @@ from test_pallas_em import _host_estep, _reads_and_model
 CPU = torch.device("cpu")
 KD = 2
 P_ATOL = 1e-4
+# the ROADMAP item that threeStateHdp waits for, named by its title
+HDP_ITEM = "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment and HDP EM'"
 T_ATOL, T_RTOL = 1e-3, 1e-5
 STEP_RTOL, STEP_ATOL, LIK_RTOL = 1e-4, 1e-4, 1e-5
 HOST_RTOL, HOST_ATOL = 1e-3, 1e-4
@@ -235,9 +237,9 @@ def test_train_models_resumes_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("what, kwargs", [
-    ("ROADMAP queue 1 item 9", dict(sm_type="vanilla")),
-    ("ROADMAP queue 1 item 10", dict(engine="host")),
-    ("ROADMAP queue 1 item 10", dict(jobs=2)),
+    ("ROADMAP queue 1, 'vanilla EM'", dict(sm_type="vanilla")),
+    ("ROADMAP queue 1, 'Host engines'", dict(engine="host")),
+    ("ROADMAP queue 1, 'Host engines'", dict(jobs=2)),
 ])
 def test_train_models_unported_options_raise(what, kwargs, tmp_path):
     from cpecan_signal_tpu_torch.cli import train_models as ttm
@@ -254,5 +256,5 @@ def test_train_models_main_rejects_hdp_flags(flag):
     being ignored by the threeState run."""
     from cpecan_signal_tpu_torch.cli import train_models as ttm
 
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}: .*ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=f"{flag[0]}: .*{HDP_ITEM}"):
         ttm.main(["-r", "ref.fa", "-d", "reads", "-T", "m", "-C", "m", *flag])

@@ -22,6 +22,8 @@ from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 from test_readpath_random import _pairs_match, _rand_pore
 
 CPU = torch.device("cpu")
+# the ROADMAP item that threeStateHdp waits for, named by its title
+HDP_ITEM = "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment and HDP EM'"
 MAKERS = {
     "vanilla": lambda pore, t, e, i: jsm.make_signal_vanilla(
         pore, t, e, "template" if i % 2 else "complement"),
@@ -107,18 +109,19 @@ def test_generic_buckets_split_by_size(monkeypatch):
 
 
 def test_threestatehdp_jobs_raise():
-    """threeStateHdp alignment waits for the hdp package (ROADMAP queue 1
-    item 9): its jobs and its CLI flag raise, naming the item."""
+    """threeStateHdp alignment waits for the hdp package (ROADMAP queue 1,
+    'The hdp package, threeStateHdp alignment and HDP EM'): its jobs and
+    its CLI flag raise, naming the item."""
     from cpecan_signal_tpu_torch.cli import vanilla_align as tva
 
     _params, cases = _cases("fourState", 59, 1, 30, 40)
     sm, band, *_r = cases[0]
     hdp = jsm.make_signal_sm3_hdp(lambda r, m: np.zeros(np.broadcast(r, m).shape),
                                   "ACGTACGTACGTAC", np.zeros((8, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=HDP_ITEM):
         tba.batch_align_jobs([SplitJob(sm, band, 0, 0, True, True),
                               SplitJob(hdp, band, 0, 0, True, True)], 0.01, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=HDP_ITEM):
         tva.make_sm_factory("threeStateHdp", None, "t")
     with pytest.raises(ValueError, match="unsupported state machine"):
         tva.make_sm_factory("fiveState", None, "t")

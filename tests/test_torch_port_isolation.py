@@ -140,6 +140,28 @@ def _case_npread(seed, tmp_path):
     return out
 
 
+def _case_fast5(seed, tmp_path):
+    pytest.importorskip("h5py")
+    from cpecan_signal_tpu.io.fast5 import fast5_to_npread as jload
+    from cpecan_signal_tpu_torch.core.kmers import sequence_kmer_ranks
+    from cpecan_signal_tpu_torch.io.fast5 import fast5_to_npread as tload
+    from test_fast5 import _make_fast5
+
+    rng = np.random.default_rng(seed)
+    seq = "".join(rng.choice(list("ACGT"), 80))
+    path = str(tmp_path / "r.fast5")
+    _make_fast5(path, seq, (50.0 + sequence_kmer_ranks(seq) % 40).astype(float), rng)
+    out = []
+    for load in (jload, tload):
+        r = load(path)
+        out.append([np.array([r.read_length]), np.frombuffer(r.twoD_read.encode(), np.uint8),
+                    np.array([getattr(r.template_params, f) for f in SCALE_FIELDS]),
+                    np.array([getattr(r.complement_params, f) for f in SCALE_FIELDS]),
+                    r.template_event_map, r.template_events, r.complement_event_map,
+                    r.complement_events])
+    return out
+
+
 def _case_kmers(seed):
     from cpecan_signal_tpu.core.kmers import sequence_kmer_ranks as jranks
     from cpecan_signal_tpu_torch.core.kmers import sequence_kmer_ranks as tranks
@@ -194,7 +216,7 @@ def _case_amap(seed):
 
 
 @pytest.mark.parametrize("case", ["make_signal_sm3", "band_construct+smooth_band",
-                                  "load_npread", "sequence_kmer_ranks",
+                                  "load_npread", "fast5_to_npread", "sequence_kmer_ranks",
                                   "ContinuousPairHmm.to_sm3_params", "amap"])
 def test_copied_host_module_matches_jax(case, tmp_path):
     """The port's copy of a host module gives exactly what the JAX package's
@@ -204,6 +226,7 @@ def test_copied_host_module_matches_jax(case, tmp_path):
         "make_signal_sm3": lambda: _case_sm3(seed),
         "band_construct+smooth_band": lambda: _case_band(seed),
         "load_npread": lambda: _case_npread(seed, tmp_path),
+        "fast5_to_npread": lambda: _case_fast5(seed, tmp_path),
         "sequence_kmer_ranks": lambda: _case_kmers(seed),
         "ContinuousPairHmm.to_sm3_params": lambda: _case_hmm(seed),
         "amap": lambda: _case_amap(seed),
@@ -230,7 +253,7 @@ def test_copies_name_their_source():
             if f"Copied from ``cpecan_signal_tpu/{rel}``" in doc:
                 copies.append(rel)
                 assert os.path.exists(os.path.join(jax_root, rel)), rel
-    assert len(copies) == 15, copies
+    assert len(copies) == 16, copies
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):

@@ -173,18 +173,18 @@ def test_unported_routes_raise(tmp_path, monkeypatch, cpu_platform):
         fh.write(cigars)
     monkeypatch.setattr("sys.stdin", io.StringIO(cigars))
     for extra in (["--engine", "host"], ["--matchGamma", "0.5"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
             trealign.main([fasta, *extra])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
         trealign.realign_record(None, {}, AlignmentParams())
     out = str(tmp_path / "m.hmm")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
         tem.expectation_maximisation(cig, [fasta], out, iterations=1, engine="host")
-    with pytest.raises(NotImplementedError, match="update_band.*ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="update_band.*ROADMAP queue 1, 'Host engines'"):
         tem.expectation_maximisation(cig, [fasta], out, iterations=1, update_band=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
         tem.main(["--alignments", cig, "--fastas", fasta, "--outputModel", out,
                   "--engine", "host"])
     monkeypatch.setenv("SIGALIGN_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Several processes'"):
         tem.expectation_maximisation(cig, [fasta], out, iterations=1)

@@ -157,7 +157,8 @@ def test_unported_machines_raise():
     hdp = make_signal_sm3_hdp(lambda r, m: np.zeros(np.broadcast(r, m).shape),
                               "ACGTACGTACGTAC", np.zeros((8, 3)))
     job = SplitJob(hdp, band_construct([], 9, 8, 4), 0, 0, True, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'The hdp package, "
+                                                  "threeStateHdp alignment and HDP EM'"):
         tba.batch_align_jobs([job], 0.01, device=CPU)
     sm = make_symbol_sm5()
     bind_symbol_sequences(sm, "ACGTACGTAC", "ACGTTCGTAC")

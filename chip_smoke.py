@@ -7,7 +7,8 @@ ptxas's registers and spills for each), holds each kernel against its plain
 PyTorch version on the card (narrow windows, and 1024-lane ones: a
 1024-thread recursion block) at the threeState, vanilla, echelon and
 fiveState plans (the emissions also with offsets off the band, the tile
-kernel's device-memory path), then drives the port's paths on 50 synthetic
+kernel's device-memory path), and the stage-4 configurations of the vanilla
+and threeStateHdp E-steps, then drives the port's paths on 50 synthetic
 two-strand reads:
 
   * alignment: cli/signal_align -s (emissions, forward, stage-3 backward),
@@ -20,7 +21,21 @@ two-strand reads:
   * the generic window machines: cli/signal_align with no machine flag
     (vanilla), --fourState and --echelon (forward, stage-3 backward; echelon
     with its per-state posteriors), each checked against the CPU plain path;
-    vanilla timed.
+    vanilla timed;
+  * vanilla training: cli/train_models --vanilla, 3 iterations (forward,
+    stage-4 backward with the beta and alpha window groups and the
+    transition channels gathered per skip bin on the card), one E-step
+    checked against the CPU plain path and between two card runs bit for
+    bit;
+  * the HDP paths: cli/build_hdp from the threeState alignment's TSV (its
+    input on the 5 smallest reads checked against the CPU plain path);
+    threeStateHdp alignment with those HDPs (E built on the card from the
+    density table; cli/vanilla_align --threeStateHdp on one read, the read
+    set timed, checked against the CPU plain path); threeStateHdp training,
+    cli/train_models --threeStateHdp, 3 iterations (stage-4 backward with
+    one posterior channel per middle edge into match, pgroups), each
+    iteration's HDPs rebuilt by Gibbs sampling; one E-step checked against
+    the CPU plain path.
 
 and the nucleotide paths on a synthetic 1 Mb genome pair (fiveState: the
 backward kernel's per-edge-group posterior channels, pgroups, checked
@@ -69,6 +84,9 @@ REPLACES = {
 # diagonal: the smallest read's two jobs of ~860 diagonals, about a minute)
 MACHINES = {"vanilla": ([], "backward", 5), "fourState": (["--fourState"], "backward", 5),
             "echelon": (["--echelon"], "backward_pstates", 1)}
+# echelon's CLI run takes the first ECHELON_READS reads of the set: a read
+# gives it about 90000 TSV rows, whose writing set the pace of that run
+ECHELON_READS = 10
 ECHELON_PSTATES = (1, 2, 3, 4, 5)   # match1..match5
 SOURCE = "cpecan_signal_tpu_torch/csrc/fb_sm3.cu"
 # tolerances of the kernel-vs-plain comparison on the card
@@ -87,14 +105,14 @@ SEED = 20261016
 EM_ITERATIONS = 3
 WIDE_W = 1024   # the widest window: a recursion block of 1024 threads (csrc/fb_sm3.cu)
 # threeState kernel checks against the plain versions (W, Dp), B = 64; the
-# stage-4 backward at every shape but (64, 4096).  The kernels line carries
+# stage-4 backward at every shape but (64, 2048).  The kernels line carries
 # the numbers of LINE_SHAPE (backward_pstates: echelon at W = 128, Dp = 1024)
-KERNEL_SHAPES = ((64, 1024), (128, 1024), (64, 4096), (128, 4096))
+KERNEL_SHAPES = ((64, 1024), (128, 1024), (64, 2048), (128, 4096))
 LINE_SHAPE = (128, 4096)
 # the generic plans' kernel checks, B problems each: (W, Dp, against the
 # plain versions); vanilla also at a width and depth of the CLI's windows
 GENERIC_B = 64
-GENERIC_SHAPES = {"vanilla": ((128, 1024, True), (128, 4096, False), (256, 4096, True)),
+GENERIC_SHAPES = {"vanilla": ((128, 1024, True), (128, 4096, False), (256, 2048, True)),
                   "echelon": ((128, 1024, True), (128, 4096, False))}
 # anchors every 80 events with expansion 50 give 256-lane windows
 WIDE_BAND = {256: (80, 50)}
@@ -115,15 +133,36 @@ QUALITY_MIN = 0.9   # precision and recall of the realigned pairs against the tr
 # 0.27, 0.32, 0.57 over five iterations on a 4 kb CPU rehearsal)
 NUC_JC_START = 0.3
 # fiveState kernel checks against the plain versions, B = 64: (W, Dp, guide
-# diagonal expansion) on segments of the genome pair of (Dp - 96) / 2 bases;
-# the kernels line's backward_pgroups entry takes the W = 128 numbers.  The
+# diagonal expansion, whether the forward and stage-3 backward are held
+# against theirs too; the pgroups stage 4 always is) on segments of the
+# genome pair of (Dp - 96) / 2 bases; the kernels line's backward_pgroups
+# entry takes the W = 128 numbers.  The
 # W = 64 check runs at Dp = 1024 and the small records are 1 kb, so that the
 # plain versions, which set the pace of these checks, keep the run within
 # its time limit on a slow host.  FIVE_WIDE (W, Dp, expansion, B): narrow
 # bands in 1024-lane windows (1024-thread recursion blocks, 5 epilogue
 # warps a block)
-FIVE_SHAPES = ((64, 1024, 20), (128, 4096, 60))
+FIVE_SHAPES = ((64, 1024, 20, True), (128, 4096, 60, False))
 FIVE_WIDE = (WIDE_W, 512, 20, 2)
+# the two stage-4 configurations of the vanilla and threeStateHdp E-steps
+# (B = 64): (W, Dp, against the plain versions); the plain versions, which
+# set the pace of these checks, run at the smaller depth
+STAGE4_SHAPES = ((128, 1024, True), (128, 4096, False))
+STAGE4_GROUPS = {"vanilla": (((0,), (1,)), None),           # (wgroups, pgroups)
+                 "threeStateHdp": (((0, 1, 2),), ((3,), (4,), (5,)))}
+# the HDP phases: the grid and HdpType of build_hdp's defaults (30-90 pA,
+# 1200 points, flat over ACEGOT); the Gibbs chain cut from the reference's
+# 10000 samples, 100000 burn-in sweeps and thinning 100 to 4000 sweeps for
+# the build (both strands in parallel) and 400 for each training
+# iteration's rebuild (of about 1.4 million assignments a strand)
+HDP_GRID = (30.0, 90.0, 1200)
+HDP_BUILD_GIBBS = ["--samples", "200", "--burnIn", "2000", "--thinning", "10"]
+HDP_TRAIN_GIBBS = ["--samples", "20", "--burnIn", "200", "--thinning", "10"]
+HDP_THRESHOLD = 0.01
+# assignments (k-mer, event) of one E-step shared by the card and the CPU:
+# a cell whose posterior lies within the posteriors' atol of the threshold
+# may fall on either side
+HDP_ASSIGN_SHARE = 0.99
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (every input read once, every output written once) at the H100
@@ -600,8 +639,9 @@ def long_read_jobs(pore, ref_seq, rng, params):
                                       events, anchors, params)
 
 
-def read_jobs(paths, ref_seq, model_path, params, sm_type="threeState"):
-    """Per-read split-job lists of the given npRead files (host prep)."""
+def read_jobs(paths, ref_seq, model_path, params, sm_type="threeState", hdp_density=None):
+    """Per-read split-job lists of the given npRead files (host prep);
+    threeStateHdp takes ``hdp_density``, a strand's density by "t" / "c"."""
     from cpecan_signal_tpu_torch.cli.vanilla_align import (guide_alignment,
                                                            prepare_read, strand_jobs)
     from cpecan_signal_tpu_torch.io.npread import load_npread
@@ -614,7 +654,7 @@ def read_jobs(paths, ref_seq, model_path, params, sm_type="threeState"):
         guide = guide_alignment(ref_seq, npr.twoD_read, params.constraint_diagonal_trim)
         prep = prepare_read(ref_seq, npr, params, sm_type=sm_type, guide=guide,
                             substitute=None, template_model=pore,
-                            complement_model=pore)
+                            complement_model=pore, hdp_density=hdp_density)
         if prep["status"] != "ok":
             raise AssertionError(f"{path} did not map")
         out.append([j for ctx in prep["strand_ctx"] for j in strand_jobs(ctx, params)])
@@ -1050,9 +1090,10 @@ def phase_five_kernels(nuc, device, stats) -> None:
     """The forward, stage-3 backward and stage-4 backward with one posterior
     channel per to-state (pgroups) kernels at the fiveState plan (5 states,
     13 edges, 3 channels gathered on the device), B = 64 at FIVE_SHAPES and
-    at FIVE_WIDE, against their plain versions on the same CUDA tensors; the
-    last of FIVE_SHAPES gives the kernels line's backward_pgroups entry its
-    times and bound."""
+    at FIVE_WIDE, against their plain versions on the same CUDA tensors (the
+    forward and stage 3 where FIVE_SHAPES marks it); the last of
+    FIVE_SHAPES gives the kernels line's backward_pgroups entry its times
+    and bound."""
     import torch
 
     from cpecan_signal_tpu_torch.em.discrete import _to_state_pgroups
@@ -1060,7 +1101,8 @@ def phase_five_kernels(nuc, device, stats) -> None:
     from cpecan_signal_tpu_torch.engine.plan import edge_table
     from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
-    for W, Dp, expansion, B in [(*shape, GENERIC_B) for shape in FIVE_SHAPES] + [FIVE_WIDE]:
+    for W, Dp, expansion, full, B in ([(*shape, GENERIC_B) for shape in FIVE_SHAPES]
+                                      + [(*FIVE_WIDE[:3], True, FIVE_WIDE[3])]):
         plan, b = five_problems(nuc, W, Dp, expansion, B, device)
         edges = pp.to_device(edge_table(plan), device)
         groups, pgroups = pp.sm3_wgroups(plan), _to_state_pgroups(plan)
@@ -1084,21 +1126,27 @@ def phase_five_kernels(nuc, device, stats) -> None:
         torch.cuda.synchronize()
         ms = {"forward": cuda_ms(run_f, 3), "backward": cuda_ms(run_b, 3),
               "backward_pgroups": cuda_ms(run_pg, 3)}
-        plain = {}
-        F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
-        (P_ref, T_ref), plain["backward"] = timed_once(lambda: fk.backward_sm3_ref(*bargs))
+        plain, errs, ok = {}, {}, {}
+        if full:
+            F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+            (P_ref, T_ref), plain["backward"] = timed_once(lambda: fk.backward_sm3_ref(*bargs))
+            errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref),
+                    "totals": max_err(T, T_ref)}
+            ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+                  "p": errs["p"] <= P_ATOL,
+                  "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))}
+            del F_ref, P_ref, T_ref
         ref, plain["backward_pgroups"] = timed_once(lambda: fk.backward_sm3_ref(
             *bargs, 4, groups, None, pgroups))
         e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
                       (max_err(a, r) for a, r in zip(got, ref))))
-        errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref), "totals": max_err(T, T_ref)}
-        ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
-              "p": errs["p"] <= P_ATOL,
-              "totals": all(bool(torch.allclose(t, T_ref, atol=F_ATOL, rtol=F_RTOL))
-                            for t in (T, got[1])),
+        ok.update({
+              "pgroups totals": bool(torch.allclose(got[1], ref[1], atol=F_ATOL,
+                                                    rtol=F_RTOL)),
               "pgroups p": e4["p"] <= P_ATOL,
               "exits/gacc": max(e4["exits"], e4["gacc"]) <= WIN_ATOL,
-              "stats": bool(torch.allclose(got[4], ref[4], atol=STATS_ATOL, rtol=STATS_RTOL))}
+              "stats": bool(torch.allclose(got[4], ref[4], atol=STATS_ATOL,
+                                           rtol=STATS_RTOL))})
         dl = b.d_last
         cells = int((dl.long() + 1).sum()) * W
         fwd_in, bwd_in = recursion_inputs(b.E, F, b.diag_scalars, dl,
@@ -1116,21 +1164,23 @@ def phase_five_kernels(nuc, device, stats) -> None:
               f"B={B}: errors {errs}, pgroups stage 4 "
               + ", ".join(f"{k} {v:.3g}" for k, v in e4.items()) + f"; ok {ok}; "
               "ms kernel/plain/bound: "
-              + ", ".join(f"{k} {ms[k]:.3f}/{plain[k]:.3f}/{bounds[k][0]:.4f} ({bounds[k][1]})"
-                          for k in ms), flush=True)
+              + ", ".join(f"{k} {ms[k]:.3f}/"
+                          + (f"{plain[k]:.3f}" if k in plain else "not timed")
+                          + f"/{bounds[k][0]:.4f} ({bounds[k][1]})" for k in ms), flush=True)
         if not all(ok.values()):
             raise AssertionError(f"fiveState kernels disagree with their plain versions at "
                                  f"W={W}: {ok}")
-        stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"], errs["F"])
-        stats["backward"]["max_abs_err"] = max(stats["backward"]["max_abs_err"], errs["p"],
-                                               errs["totals"])
+        if full:
+            stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"], errs["F"])
+            stats["backward"]["max_abs_err"] = max(stats["backward"]["max_abs_err"],
+                                                   errs["p"], errs["totals"])
         st = stats["backward_pgroups"]
         st["max_abs_err"] = max(st["max_abs_err"], *e4.values())
         if (W, Dp) == FIVE_SHAPES[-1][:2]:
             st.update(ms=ms["backward_pgroups"], plain_ms=plain["backward_pgroups"],
                       bound_ms=bounds["backward_pgroups"][0],
                       bound_by=bounds["backward_pgroups"][1])
-        del F, P, T, got, ref, F_ref, P_ref, T_ref, b
+        del F, P, T, got, ref, b
         torch.cuda.empty_cache()
 
 
@@ -1317,6 +1367,474 @@ def phase_nuc_em_agreement(tmp, nuc, device) -> None:
         raise AssertionError("nucleotide E-step: cuda and cpu disagree, or two card runs differ")
 
 
+def hdp_table(pore, device):
+    """(table (NUM_OF_KMERS + 2, 1200) f32 on ``device``, g0, dg): a density
+    table on HDP_GRID whose row of a k-mer is a normal density (sd 1.5 pA)
+    at the pore model's level, for the threeStateHdp kernel checks."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+
+    grid = np.linspace(*HDP_GRID[:2], HDP_GRID[2])
+    level = np.concatenate([pore.match_model[:-2, 0], [60.0, 60.0]])
+    tab = np.exp(-0.5 * ((grid[None, :] - level[:, None]) / 1.5) ** 2) / (1.5 * 2.5066283)
+    return pp.to_device(tab.astype(np.float32), device), grid[0], grid[1] - grid[0]
+
+
+def stage4_problems(pore, machine: str, W: int, Dp: int, B: int, rng, device):
+    """(plan, WindowProblem, wgroups, pgroups) of B problems (4 distinct
+    synthetic reads, anchored every 20 events with expansion 20, repeated)
+    of the vanilla E-step (its 5 transition channels gathered through the
+    skip-bin grid from the model's bins) or the threeStateHdp E-step (E
+    built by readpath.hdp_emissions from ``hdp_table``), W lanes, padded to
+    Dp diagonals, on ``device``."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.core.band import band_construct
+    from cpecan_signal_tpu_torch.core.window import smooth_band
+    from cpecan_signal_tpu_torch.em import hdp_em, vanilla_em
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine import readpath
+    from cpecan_signal_tpu_torch.engine.plan import plan_key_names
+    from cpecan_signal_tpu_torch.models import state_machines as sms
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    cases = []
+    while len(cases) < 4:
+        target = "".join(rng.choice(list("ACGT"), int(0.40 * Dp)))
+        events, path = syn.simulate_events(pore, target, rng)
+        n_kmers = len(target) - 5
+        band = band_construct(syn.path_anchors(path, n_kmers, len(events), 20), n_kmers,
+                              len(events), 20)
+        wb = smooth_band(band, width_multiple=W)
+        if wb.W == W and wb.n_diagonals <= Dp:
+            cases.append((target, events, wb, bool(len(cases) % 2), len(cases) < 2))
+    idx = torch.arange(B) % len(cases)
+    cpu = torch.device("cpu")
+    if machine == "vanilla":
+        probs, keys, sm = [], [], None
+        for target, events, wb, rl, rr in cases:
+            sm = sms.make_signal_vanilla(pore, target, events, "template")
+            plan, prob = pp.make_window_problem(sm, wb, device=cpu, ragged_left=rl,
+                                                ragged_right=rr, pad_d=Dp)
+            probs.append(prob)
+            keys.append(vanilla_em._bin_keys(sm, wb, prob.x0.numpy(), Dp))
+        batch = vanilla_em.VanillaBatch(*pp.stack_window_problems(probs),
+                                        *(torch.from_numpy(np.stack(c)) for c in zip(*keys)))
+        batch = vanilla_em.VanillaBatch(*(f[idx].to(device) for f in batch))
+        tabs, _scalars = sms.vanilla_transition_tables(pore.skip_bins, "template")
+        T = pp.to_device(np.stack([np.maximum(tabs[k], pp.NEG_INF)
+                                   for k in plan_key_names(sm)[1]]).astype(np.float32), device)
+        cells = batch.bin_grid.long()
+        for c in range(T.shape[0]):
+            batch.E[:, :, plan.n_eclasses + c, :] = T[c][cells]
+        return plan, pp.WindowProblem(*batch[:7]), vanilla_em.vanilla_wgroups(plan), None
+    zero = hdp_em._zero_density
+    items = [(sms.make_signal_sm3_hdp(zero, t, e), wb, rl, rr) for t, e, wb, rl, rr in cases]
+    plan, fields = pp.stack_window_scalars(items, Dp, cpu)
+    rank, mean = (torch.from_numpy(np.stack(a)) for a in zip(
+        *(pp.hdp_inputs(sm, Dp + 2) for sm, *_r in items)))
+    ds, dl, start, end, tp, x0 = (f[idx].to(device) for f in fields)
+    tab, g0, dg = hdp_table(pore, device)
+    E = readpath.hdp_emissions(tab, g0, dg, rank[idx].to(device), mean[idx].to(device),
+                               ds[:, :Dp, 0, fk.DS_W0], dl, W)
+    return (plan, pp.WindowProblem(E, ds, dl, start, end, tp, x0), pp.sm3_wgroups(plan),
+            hdp_em.hdp_pgroups(plan))
+
+
+def phase_stage4_configs(pore, device, rng, stats) -> None:
+    """The two stage-4 configurations that the vanilla and threeStateHdp
+    E-steps add: the vanilla plan (7 edges, 3 emission classes, 5 transition
+    channels) with window groups (beta, alpha), and the threeStateHdp plan
+    (8 edges) with one posterior channel per middle edge into match
+    (pgroups), with the forward, at B = 64 and STAGE4_SHAPES: timed, and
+    where marked held against the plain versions; errors join ``stats``."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine.plan import edge_table
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    for machine, (want_w, want_p) in STAGE4_GROUPS.items():
+        kernel = "backward_em" if want_p is None else "backward_pgroups"
+        for W, Dp, check in STAGE4_SHAPES:
+            plan, b, wgroups, pgroups = stage4_problems(pore, machine, W, Dp, GENERIC_B, rng,
+                                                        device)
+            if (wgroups, pgroups) != (want_w, want_p):
+                raise AssertionError(f"{machine}: groups {wgroups}, {pgroups}")
+            edges = pp.to_device(edge_table(plan), device)
+            fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+
+            def run_f():
+                return fk.forward_sm3(*fargs)
+
+            F = run_f()
+            bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end,
+                     b.tp_scalar)
+
+            def run_b4():
+                return fk.backward_sm3(*bargs, stages=4, wgroups=wgroups, pgroups=pgroups)
+
+            got = run_b4()
+            torch.cuda.synchronize()
+            ms = {"forward": cuda_ms(run_f, 3), kernel: cuda_ms(run_b4, 3)}
+            plain, line = {}, ""
+            if check:
+                F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+                ref, plain[kernel] = timed_once(lambda: fk.backward_sm3_ref(
+                    *bargs, 4, wgroups, None, pgroups))
+                e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
+                              (max_err(a, r) for a, r in zip(got, ref))))
+                ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+                      "p": e4["p"] <= P_ATOL,
+                      "totals": bool(torch.allclose(got[1], ref[1], atol=F_ATOL,
+                                                    rtol=F_RTOL)),
+                      "exits/gacc": max(e4["exits"], e4["gacc"]) <= WIN_ATOL,
+                      "stats": bool(torch.allclose(got[4], ref[4], atol=STATS_ATOL,
+                                                   rtol=STATS_RTOL))}
+                line = (f": errors F {max_err(F, F_ref):.3g}, "
+                        + ", ".join(f"{k} {v:.3g}" for k, v in e4.items()) + f"; ok {ok}")
+                if not all(ok.values()) or float(got[0].sum()) <= 0:
+                    raise AssertionError(f"stage 4 {machine}{line}")
+                stats["forward"]["max_abs_err"] = max(stats["forward"]["max_abs_err"],
+                                                      max_err(F, F_ref))
+                stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"],
+                                                   *e4.values())
+                del F_ref, ref
+            dl = b.d_last
+            cells = int((dl.long() + 1).sum()) * W
+            fwd_in, bwd_in = recursion_inputs(b.E, F, b.diag_scalars, dl,
+                                              nbytes(dl, edges, b.tp_scalar))
+            S = plan.n_states
+            bounds = {"forward": bound(ops_per_cell("forward", edges),
+                                       fwd_in + nbytes(b.start, F), cells),
+                      kernel: bound(ops_per_cell(kernel, edges, S, wgroups=wgroups,
+                                                 pgroups=pgroups or ()),
+                                    bwd_in + nbytes(b.end, *got), cells)}
+            print(f"stage 4 {machine} plan ({S} states, {len(plan.edges)} edges, "
+                  f"{b.E.shape[2]} channels, wgroups {wgroups}, pgroups {pgroups}) W={W} "
+                  f"Dp={Dp} B={GENERIC_B}{line}; ms kernel/plain/bound: "
+                  + ", ".join(f"{k} {ms[k]:.3f}/"
+                              + (f"{plain[k]:.3f}" if k in plain else "not timed")
+                              + f"/{bounds[k][0]:.4f} ({bounds[k][1]})" for k in ms),
+                  flush=True)
+            del F, got, b
+            torch.cuda.empty_cache()
+
+
+def align_small(tmp, small, ref_seq, model, params, device):
+    """threeState alignment of the ``small`` reads' split jobs on the card
+    and by the CPU plain path, each written as a posterior TSV.  Returns
+    (jobs, card pairs, CPU pairs, {"cuda": TSV path, "cpu": TSV path})."""
+    import torch
+
+    from cpecan_signal_tpu_torch.cli.vanilla_align import (finish_read, guide_alignment,
+                                                           prepare_read, strand_jobs)
+    from cpecan_signal_tpu_torch.engine.batch_align import assemble_pairs, batch_align_jobs
+    from cpecan_signal_tpu_torch.io.npread import load_npread
+    from cpecan_signal_tpu_torch.models.pore_model import load_pore_model
+
+    pore = load_pore_model(model)
+    preps, jobs, owners = [], [], []
+    for path in small:
+        npr = load_npread(path)
+        prep = prepare_read(ref_seq, npr, params, sm_type="threeState",
+                            guide=guide_alignment(ref_seq, npr.twoD_read,
+                                                  params.constraint_diagonal_trim),
+                            substitute=None, template_model=pore, complement_model=pore)
+        for ctx in prep["strand_ctx"]:
+            for j in strand_jobs(ctx, params):
+                jobs.append(j)
+                owners.append((len(preps), ctx["strand"]))
+        preps.append((os.path.basename(path), prep))
+    tsv, results = {}, []
+    for name, dev in (("cuda", device), ("cpu", torch.device("cpu"))):
+        pairs = batch_align_jobs(jobs, params.threshold, device=dev)
+        tsv[name] = os.path.join(tmp, f"small_{name}.tsv")
+        with open(tsv[name], "w") as fh:
+            for k, (label, prep) in enumerate(preps):
+                finish_read(prep, {s: assemble_pairs([f for f, o in zip(pairs, owners)
+                                                      if o == (k, s)]) for s in "tc"},
+                            fh, label, "ref")
+        results.append(pairs)
+    return jobs, results[0], results[1], tsv
+
+
+def tsv_keys(path) -> dict:
+    """(read, strand) -> the (reference position, event) keys of a
+    posterior TSV's rows, and the (k-mer, descaled mean) they assign."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            r = line.rstrip("\n").split("\t")
+            out.setdefault((r[3], r[4]), {})[(r[1], r[5])] = (r[9], r[13])
+    return out
+
+
+def phase_build_hdp(tmp, tsv, model, small_tsv, card: str) -> tuple[str, str]:
+    """cli/build_hdp from the threeState posterior TSV of the read set:
+    HdpType 0 on HDP_GRID, the chain cut to HDP_BUILD_GIBBS, both strands
+    in parallel; timed.  Its check: the assignments it reads, the threeState
+    alignment TSV of the 5 smallest reads (``small_tsv``, written by
+    ``align_small``), come out of the card as out of the CPU plain path (per
+    read and strand at most PAIR_TOL rows differing, and the same k-mer and
+    event mean on the shared rows), and the built HDPs hold finite
+    densities (the median of each strand's most frequent k-mer's points and
+    of its density are printed beside).  Returns the template and
+    complement .nhdp paths."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.cli import build_hdp
+    from cpecan_signal_tpu_torch.hdp.nanopore import deserialize_nhdp
+
+    out = [os.path.join(tmp, f"{s}.nhdp") for s in ("template", "complement")]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = build_hdp.main(["-a", tsv, "-p", "0", "-T", model, "-C", model, "-v", out[0],
+                             "-w", out[1], *HDP_BUILD_GIBBS])
+    t_build = time.perf_counter() - t0
+    counts = re.findall(r"build_hdp - (\w): (\d+) assignments", buf.getvalue())
+    points = {"t": {}, "c": {}}
+    with open(tsv) as fh:
+        for line in fh:
+            r = line.split("\t")
+            points[r[4]].setdefault(r[9], []).append(float(r[13]))
+    centred = []
+    for strand, path in zip("tc", out):
+        nhdp = deserialize_nhdp(path)
+        kmer, pts = max(points[strand].items(), key=lambda kv: len(kv[1]))
+        cdf = np.cumsum(nhdp.kmer_density(kmer, nhdp.hdp.grid))
+        table = nhdp.density_table()
+        centred.append((kmer, len(pts), float(np.median(pts)),
+                        float(nhdp.hdp.grid[np.searchsorted(cdf / cdf[-1], 0.5)]),
+                        bool(np.isfinite(table).all() and (table >= 0).all())))
+    ok = rc == 0 and len(counts) == 2 and all(fin for *_r, fin in centred)
+    keys = {name: tsv_keys(path) for name, path in small_tsv.items()}
+    miss = max(len(set(keys["cuda"].get(k, {})) ^ set(keys["cpu"].get(k, {})))
+               for k in set(keys["cuda"]) | set(keys["cpu"]))
+    same = all(keys["cuda"][k][c] == keys["cpu"][k][c] for k in keys["cuda"]
+               for c in set(keys["cuda"][k]) & set(keys["cpu"].get(k, {})))
+    print(f"build_hdp: rc={rc} HdpType 0 grid {HDP_GRID}, Gibbs {HDP_BUILD_GIBBS}, "
+          f"assignments {dict(counts)} in {t_build:.2f} s; most frequent k-mer (points, "
+          f"their median, its density's median, table finite): {centred}; its input on "
+          f"the 5 smallest reads, cuda vs cpu: {len(keys['cuda'])} read strands, rows "
+          f"differing at most {miss} a read and strand (tol {PAIR_TOL}), shared rows' "
+          f"k-mer and mean equal {same}; card {card}", flush=True)
+    if not ok or miss > PAIR_TOL or not same or len(keys["cuda"]) != 10:
+        raise AssertionError(f"build_hdp failed: {buf.getvalue()[-2000:]}")
+    return out[0], out[1]
+
+
+def phase_hdp_align(tmp, ref, ref_seq, model, paths, small, nhdp_paths, fk, device,
+                    card: str) -> dict:
+    """threeStateHdp alignment on the card: cli/vanilla_align --threeStateHdp
+    -v -w on one read (the launch counts of this path alone), then
+    batch_align_stream over the read set, median of 3 (reads/s, events/s,
+    seconds by stage), then the jobs of the 5 smallest reads against the
+    CPU plain path."""
+    import torch
+
+    from cpecan_signal_tpu_torch.cli import vanilla_align
+    from cpecan_signal_tpu_torch.engine.batch_align import (batch_align_jobs,
+                                                            batch_align_stream)
+    from cpecan_signal_tpu_torch.hdp.nanopore import deserialize_nhdp
+    from cpecan_signal_tpu_torch.models.params import cli_defaults
+
+    out = os.path.join(tmp, "hdp_one.tsv")
+    buf = io.StringIO()
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = vanilla_align.main(["-r", ref, "-q", paths[0], "-T", model, "-C", model,
+                                 "-u", out, "--threeStateHdp", "-v", nhdp_paths[0], "-w",
+                                 nhdp_paths[1]])
+    t_cli = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    with open(out) as fh:
+        n_rows = sum(1 for _ in fh)
+    print(f"cli threeStateHdp: rc={rc} vanilla_align on {os.path.basename(paths[0])}: "
+          f"{n_rows} TSV rows ({buf.getvalue().strip()}), launches {launches}, {t_cli:.2f} s",
+          flush=True)
+    if rc != 0 or n_rows < 100 or launches["forward"] < 1 or launches["backward"] < 1:
+        raise AssertionError("threeStateHdp alignment path failed")
+
+    params = cli_defaults()
+    density = {s: deserialize_nhdp(p).density_logp_fn() for s, p in zip("tc", nhdp_paths)}
+    per_read = read_jobs(paths, ref_seq, model, params, "threeStateHdp", density)
+    n_ev = sum(len(j.sm.event_means) for jl in per_read for j in jl)
+    batch_align_stream(iter(per_read), params.threshold, device=device)
+    runs = []
+    for _ in range(3):
+        timing = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _jobs, pairs = batch_align_stream(iter(per_read), params.threshold,
+                                          device=device, timing=timing)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, timing, sum(len(p.probs) for p in pairs)))
+    t_med, timing, n_pairs = sorted(runs, key=lambda r: r[0])[1]
+    print(f"timing threeStateHdp: {len(paths)} reads ({n_ev} events, "
+          f"{sum(len(jl) for jl in per_read)} split jobs, {n_pairs} pairs) batch_align_stream "
+          f"median of 3 {t_med:.4f} s (runs {', '.join(f'{t:.4f}' for t, *_r in runs)}): "
+          f"{len(paths) / t_med:.2f} reads/s, {n_ev / t_med:.0f} events/s; median run by "
+          "stage " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(timing.items()))
+          + f"; card {card}", flush=True)
+    if n_pairs < n_ev // 2:
+        raise AssertionError(f"threeStateHdp: {n_pairs} pairs for {n_ev} events")
+
+    jobs = [j for jl in read_jobs(small, ref_seq, model, params, "threeStateHdp", density)
+            for j in jl]
+    t0 = time.perf_counter()
+    got = batch_align_jobs(jobs, params.threshold, device=device)
+    t1 = time.perf_counter()
+    want = batch_align_jobs(jobs, params.threshold, device=torch.device("cpu"))
+    t2 = time.perf_counter()
+    worst = [pairs_agree(g, w) for g, w in zip(got, want)]
+    miss, drift = max(m for m, _ in worst), max(d for _, d in worst)
+    print(f"agreement threeStateHdp: {len(jobs)} jobs of {len(small)} reads, cuda vs cpu "
+          f"({t1 - t0:.2f} s / {t2 - t1:.2f} s): max pairs differing {miss} (tol "
+          f"{PAIR_TOL}), max posterior drift {drift:.3g} (tol {PROB_TOL})", flush=True)
+    if miss > PAIR_TOL or drift > PROB_TOL:
+        raise AssertionError("threeStateHdp: cuda and cpu paths disagree")
+    return launches
+
+
+def phase_train_machine(tmp, reads, ref, model, fk, machine: str, extra) -> dict:
+    """cli/train_models of ``machine`` (vanilla or threeStateHdp) on the read
+    set on the card, EM_ITERATIONS iterations: the launch counts of this
+    path alone, the E-step (and HDP rebuild) seconds, the likelihoods, which
+    are printed and must be finite but are not held to rise: vanilla's
+    M-step normalizes its 60 skip bins jointly, as the reference does
+    (VanillaHmm.normalize, continuousHmm.c:424-433), so it maximizes
+    nothing; threeStateHdp's emissions are each iteration a new Gibbs
+    chain's densities, added raw into the log-space recursion (the
+    reference's quirk, models/state_machines.make_signal_sm3_hdp).  Each is
+    checked against the CPU plain path instead (phase_em_machine_agreement)."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.cli import train_models
+    from cpecan_signal_tpu_torch.em.accumulators import load_signal_hmm
+
+    out_dir = os.path.join(tmp, f"train_{machine}")
+    os.makedirs(out_dir)
+    buf = io.StringIO()
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_models.main(["-r", ref, "-d", reads, "-T", model, "-C", model, "-i",
+                                str(EM_ITERATIONS), "-o", out_dir, f"--{machine}", *extra])
+    t_train = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    log = buf.getvalue()
+    strands = re.findall(r"strand (\w): (\d+) split jobs \((\d+) events\) in (\d+) "
+                         r"device buckets", log)
+    iters = re.findall(r"iteration \d+: E-step ([\d.]+) s(?:, HDP rebuild ([\d.]+) s)?, "
+                       r"likelihood (-?[\d.]+)", log)
+    n_ev = sum(int(ev) for _s, _j, ev, _b in strands)
+    estep = [float(e) for e, _g, _l in iters]
+    liks = [float(lik) for _e, _g, lik in iters]
+    rebuild = [float(g) for _e, g, _l in iters if g]
+    assigned = re.findall(r"strand (\w): (\d+) assignments", log)
+    print(f"train {machine}: rc={rc} {EM_ITERATIONS} iterations in {t_train:.2f} s; "
+          + "; ".join(f"strand {s}: {j} split jobs, {ev} events, {nb} buckets"
+                      for s, j, ev, nb in strands)
+          + f"; likelihood {liks}; E-step s {estep}, events/s "
+          f"{[round(n_ev / s) for s in estep]}"
+          + (f"; HDP rebuild s {rebuild}, assignments {[int(a) for _s, a in assigned]}"
+             if rebuild else "") + f"; launches {launches}", flush=True)
+    if rc != 0 or len(iters) != EM_ITERATIONS or len(strands) != 2:
+        raise AssertionError(f"train {machine} failed\n{log[-3000:]}")
+    if not np.isfinite(liks).all():
+        raise AssertionError(f"train {machine}: likelihood {liks}")
+    kernel = "backward_pgroups" if machine == "threeStateHdp" else "backward_em"
+    if launches["forward"] < 1 or launches[kernel] < 1:
+        raise AssertionError(f"train {machine} never launched the forward or {kernel} kernel")
+    for name in ("template", "complement"):
+        hmm = load_signal_hmm(os.path.join(out_dir, f"{name}_trained.hmm"))
+        total = hmm.bins.sum() if machine == "vanilla" else hmm.transitions.sum(1)
+        if np.abs(total - 1.0).max() > 1e-4:
+            raise AssertionError(f"{machine} {name}_trained.hmm is not a trained model")
+        if machine == "threeStateHdp" and not os.path.exists(
+                os.path.join(out_dir, f"{name}_trained.nhdp")):
+            raise AssertionError(f"threeStateHdp wrote no {name}_trained.nhdp")
+    return launches
+
+
+def phase_em_machine_agreement(small, ref_seq, model, device, machine: str,
+                               nhdp_paths=None) -> None:
+    """One E-step of ``machine`` over the jobs of the 5 smallest reads, both
+    strands: the card's kernels against the CPU plain path (tallies rtol
+    1e-4 + atol 1e-5, likelihood 1e-5 relative; threeStateHdp: at least
+    HDP_ASSIGN_SHARE of the assignments shared), and two card runs equal bit
+    for bit."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch.cli.train_models import _prepare_read
+    from cpecan_signal_tpu_torch.em import hdp_em, sm3_em, vanilla_em
+    from cpecan_signal_tpu_torch.hdp.nanopore import deserialize_nhdp
+    from cpecan_signal_tpu_torch.io.npread import load_npread
+    from cpecan_signal_tpu_torch.models.params import cli_defaults
+    from cpecan_signal_tpu_torch.models.pore_model import load_pore_model
+
+    params = cli_defaults()
+    pore = load_pore_model(model)
+    hdp = machine == "threeStateHdp"
+    preps = [_prepare_read(ref_seq, load_npread(p), params, descale=hdp) for p in small]
+    worst = {"tallies": 0.0, "likelihood": 0.0, "assignments": 1.0}
+    n_jobs, same, t_card, t_cpu = 0, True, 0.0, 0.0
+    for strand in ("t", "c"):
+        if hdp:
+            jobs = hdp_em.collect_hdp_em_jobs(preps, params, strand)
+            nhdp = deserialize_nhdp(nhdp_paths[0 if strand == "t" else 1])
+
+            def step(dev):
+                b = hdp_em.build_hdp_em_buckets(jobs, device=dev, threshold=HDP_THRESHOLD)
+                return hdp_em.hdp_em_step(b, nhdp, None, HDP_THRESHOLD)
+        else:
+            jobs = sm3_em.collect_sm3_em_jobs(preps, {"t": pore, "c": pore}, params, strand)
+
+            def step(dev):
+                b = vanilla_em.build_vanilla_em_buckets(jobs, strand, device=dev)
+                return vanilla_em.vanilla_em_step(b, pore.skip_bins)
+        n_jobs += len(jobs)
+        t0 = time.perf_counter()
+        card, again = step(device), step(device)
+        t1 = time.perf_counter()
+        plain = step(torch.device("cpu"))
+        t_card, t_cpu = t_card + (t1 - t0) / 2, t_cpu + time.perf_counter() - t1
+        tallies = (card[0], plain[0])
+        lik = (card[1], plain[1])
+        same = same and all(np.array_equal(np.asarray(a), np.asarray(b))
+                            for a, b in zip(card, again))
+        if not np.allclose(*tallies, rtol=STEP_RTOL, atol=STEP_ATOL) or \
+                abs(lik[0] - lik[1]) > LIK_RTOL * abs(lik[1]):
+            raise AssertionError(f"{machine} E-step on the card and the CPU disagree "
+                                 f"(strand {strand})")
+        worst["tallies"] = max(worst["tallies"], float(np.abs(tallies[0] - tallies[1]).max()))
+        worst["likelihood"] = max(worst["likelihood"], abs(lik[0] - lik[1]) / abs(lik[1]))
+        if hdp:
+            a = Counter(zip(card[2], card[3]))
+            b = Counter(zip(plain[2], plain[3]))
+            share = sum((a & b).values()) / max(len(card[2]), len(plain[2]), 1)
+            worst["assignments"] = min(worst["assignments"], share)
+            if share < HDP_ASSIGN_SHARE or len(card[2]) < 100:
+                raise AssertionError(f"threeStateHdp assignments: {share} shared")
+    print(f"em {machine} agreement: one E-step over {n_jobs} jobs of {len(small)} reads, "
+          f"cuda vs cpu ({t_card:.2f} s / {t_cpu:.2f} s): max abs err tallies "
+          f"{worst['tallies']:.3g} (rtol {STEP_RTOL} atol {STEP_ATOL}), likelihood relative "
+          f"{worst['likelihood']:.3g} (tol {LIK_RTOL})"
+          + (f", assignments shared {worst['assignments']:.5f} (>= {HDP_ASSIGN_SHARE})"
+             if hdp else "") + f"; two card runs bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{machine}: two card E-steps differ")
+
+
 def main() -> int:
     import torch
 
@@ -1334,6 +1852,10 @@ def main() -> int:
     from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
     t_start = time.perf_counter()
+
+    def mark(label: str) -> None:
+        print(f"elapsed after {label}: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1366,6 +1888,8 @@ def main() -> int:
         phase_generic_kernels(pore, device, rng, stats)
         nuc = nucleotide_set(tmp)
         phase_five_kernels(nuc, device, stats)
+        phase_stage4_configs(pore, device, rng, stats)
+        mark("the kernel checks")
 
         # --- alignment path through the CLI; the reference and the reads
         # come from a generator of their own, so that the read set does not
@@ -1395,9 +1919,9 @@ def main() -> int:
         params = cli_defaults()
         per_read = read_jobs(paths, ref_seq, model, params)
         sizes = [sum(len(j.sm.sm3_pack[2]) for j in jl) for jl in per_read]
-        jobs5 = [j for i in np.argsort(sizes)[:5] for j in per_read[i]]
-        got = batch_align_jobs(jobs5, params.threshold, device=device)
-        want5 = batch_align_jobs(jobs5, params.threshold, device=torch.device("cpu"))
+        small = [paths[i] for i in np.argsort(sizes)[:5]]
+        jobs5, got, want5, small_tsv = align_small(tmp, small, ref_seq, model, params,
+                                                   device)
         worst = [pairs_agree(g, w) for g, w in zip(got, want5)]
         miss = max(m for m, _ in worst)
         drift = max(d for _, d in worst)
@@ -1438,21 +1962,46 @@ def main() -> int:
               f"{t_long:.4f} s; card {card}", flush=True)
         phase_long_emissions(max(long_calls, key=lambda a: a[5]), card, stats)
         del long_calls
+        mark("threeState alignment")
 
         # --- training path through the CLI, and one E-step against the CPU
         path_launches = [launches, phase_train(tmp, reads, ref, model, fk)]
         phase_em_agreement(paths, ref_seq, model, device)
+        mark("threeState training")
 
         # --- the generic window machines through the CLI, each against the
         # CPU plain path on the jobs of the 5 smallest reads (echelon: the
         # smallest, MACHINES); vanilla timed
-        small = [paths[i] for i in np.argsort(sizes)[:5]]
+        ech_reads = os.path.join(tmp, "reads_echelon")
+        os.makedirs(ech_reads)
+        for p in paths[:ECHELON_READS]:
+            os.symlink(p, os.path.join(ech_reads, os.path.basename(p)))
         for machine in MACHINES:
-            path_launches.append(phase_generic_cli(tmp, reads, ref, model, paths, fk,
-                                                   machine))
+            cli_set = ((ech_reads, paths[:ECHELON_READS]) if machine == "echelon"
+                       else (reads, paths))
+            path_launches.append(phase_generic_cli(tmp, cli_set[0], ref, model, cli_set[1],
+                                                   fk, machine))
             phase_generic_agreement(small[:MACHINES[machine][2]], ref_seq, model, device,
                                     machine)
         phase_vanilla_timing(paths, ref_seq, model, device, card)
+        mark("the generic machines")
+
+        # --- vanilla EM; the HDPs built from the threeState alignment's TSV,
+        # threeStateHdp alignment and HDP EM on them; each against the CPU
+        # plain path on the 5 smallest reads
+        path_launches.append(phase_train_machine(tmp, reads, ref, model, fk, "vanilla", []))
+        phase_em_machine_agreement(small, ref_seq, model, device, "vanilla")
+        mark("vanilla training")
+        nhdp_paths = phase_build_hdp(tmp, os.path.join(tmp, "out", "posteriors.tsv"), model,
+                                     small_tsv, card)
+        path_launches.append(phase_hdp_align(tmp, ref, ref_seq, model, paths, small,
+                                             nhdp_paths, fk, device, card))
+        path_launches.append(phase_train_machine(
+            tmp, reads, ref, model, fk, "threeStateHdp",
+            ["-v", nhdp_paths[0], "-w", nhdp_paths[1], "--assignmentThreshold",
+             str(HDP_THRESHOLD), *HDP_TRAIN_GIBBS]))
+        phase_em_machine_agreement(small, ref_seq, model, device, "threeStateHdp", nhdp_paths)
+        mark("the HDP paths")
 
         # --- the nucleotide paths through their CLIs: realignment, then
         # nucleotide EM; each checked against the CPU plain path on small

@@ -24,8 +24,7 @@ from ..io.npread import load_npread
 from ..models.params import cli_defaults
 from ..models.pore_model import load_pore_model
 from ..utils.device import resolve_device
-from .vanilla_align import (finish_read, guide_alignment, prepare_read,
-                            require_ported, strand_jobs)
+from .vanilla_align import finish_read, guide_alignment, prepare_read, strand_jobs
 
 
 class TargetRegions:
@@ -150,7 +149,6 @@ def main(argv=None):
     sm_type = ("threeState" if args.strawMan else
                "fourState" if args.fourState else
                "echelon" if args.echelon else "vanilla")
-    require_ported(sm_type)
     if args.jobs > 1:
         raise NotImplementedError("--jobs > 1 (per-read worker processes) is not "
                                   "ported: ROADMAP queue 1, 'Several processes'")

@@ -5,8 +5,9 @@ Given a reference sequence, an npRead and pore models, aligns the template
 and complement event sequences to the reference with anchor banding on the
 device-batched path and writes the 15-column posterior TSV
 (writePosteriorProbs, vanillaAlign.c:26-96).  The machine is vanilla by
-default, threeState (-s), fourState (-f) or echelon (-e); trained models
-(-y / -z, .hmm files) replace the defaults.  The guide alignment comes from
+default, threeState (-s), fourState (-f), echelon (-e) or threeStateHdp
+(--threeStateHdp, with NanoporeHDPs -v / -w); trained models (-y / -z,
+.hmm files) replace the defaults.  The guide alignment comes from
 the built-in seed-chain anchorer (both strands tried) or from an exonerate
 CIGAR file.
 """
@@ -26,22 +27,16 @@ from ..core.kmers import kmer_rank
 from ..engine.align import AlignedPairs, collect_split_jobs
 from ..em.accumulators import load_signal_hmm, signal_sm_params
 from ..engine.batch_align import assemble_pairs, batch_align_jobs
+from ..hdp.nanopore import deserialize_nhdp
 from ..io.cigar import CigarRecord, parse_cigar_line
 from ..io.fasta import read_first_sequence, reverse_complement
 from ..io.npread import NanoporeRead, load_npread
 from ..models.params import AlignmentParams, cli_defaults
 from ..models.pore_model import PoreModel, load_pore_model, scale_model
 from ..models.state_machines import (make_signal_echelon, make_signal_sm3,
-                                      make_signal_sm4, make_signal_vanilla)
+                                      make_signal_sm3_hdp, make_signal_sm4,
+                                      make_signal_vanilla)
 from ..utils.device import resolve_device
-
-
-def require_ported(sm_type: str) -> None:
-    """threeStateHdp alignment (a NanoporeHDP density) is not ported yet."""
-    if sm_type == "threeStateHdp":
-        raise NotImplementedError("threeStateHdp alignment is not ported yet: "
-                                  "ROADMAP queue 1, 'The hdp package, threeStateHdp "
-                                  "alignment and HDP EM'")
 
 
 def guide_alignment(ref_seq: str, read_seq: str, trim: int) -> CigarRecord | None:
@@ -143,11 +138,12 @@ def write_posterior_probs(fh, read_label: str, contig: str, match_model: np.ndar
 
 
 def make_sm_factory(sm_type: str, pore: PoreModel, strand: str, transitions=None,
-                    kmer_gap_probs=None, skip_bins=None):
+                    kmer_gap_probs=None, skip_bins=None, hdp_density=None):
     """State-machine factory of one strand ("t" or "c"): (target, events)
     -> machine, with trained transitions and k-mer gap probabilities
-    (threeState, fourState) or skip bins (vanilla, echelon) where given."""
-    require_ported(sm_type)
+    (threeState, fourState, threeStateHdp) or skip bins (vanilla, echelon)
+    where given; threeStateHdp emits from ``hdp_density`` (a NanoporeHDP's
+    density_logp_fn, or alphabet_density_fn for --substitute targets)."""
     sname = "template" if strand == "t" else "complement"
     if sm_type == "threeState":
         return lambda t, e: make_signal_sm3(pore, t, e, transitions, kmer_gap_probs)
@@ -157,25 +153,35 @@ def make_sm_factory(sm_type: str, pore: PoreModel, strand: str, transitions=None
         return lambda t, e: make_signal_vanilla(pore, t, e, sname, skip_bins)
     if sm_type == "echelon":
         return lambda t, e: make_signal_echelon(pore, t, e, sname, skip_bins)
+    if sm_type == "threeStateHdp":
+        if hdp_density is None:
+            raise ValueError("threeStateHdp needs an HDP density (--templateHdp, "
+                             "--complementHdp)")
+        return lambda t, e: make_signal_sm3_hdp(hdp_density, t, e, transitions)
     raise ValueError(f"unsupported state machine type {sm_type}")
 
 
 def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
                  *, sm_type: str, guide: CigarRecord | None,
                  substitute: str | None, template_model, complement_model,
-                 trained: dict | None = None) -> dict:
+                 trained: dict | None = None, hdp_density: dict | None = None) -> dict:
     """Phase 1 of a read: guide, reference trimming, per-strand event windows
     and anchors, and state-machine factories — everything up to running the
     engine, so a multi-read caller can pool split jobs across reads.
     ``trained`` maps a strand ("t", "c") to the keyword arguments of
-    make_sm_factory from a trained model (em/accumulators.signal_sm_params)."""
-    require_ported(sm_type)
+    make_sm_factory from a trained model (em/accumulators.signal_sm_params),
+    ``hdp_density`` a strand to its threeStateHdp density; threeStateHdp
+    aligns the descaled events against the unscaled model, as the reference
+    queries its HDP."""
     trained = trained or {}
+    hdp_density = hdp_density or {}
     if guide is None:
         guide = guide_alignment(ref_seq, npread.twoD_read,
                                 params.constraint_diagonal_trim)
     if guide is None:
         return {"status": "unmapped"}
+    if sm_type == "threeStateHdp":
+        npread = npread.descale()
 
     # the reference window on the mapped strand
     if guide.strand1:
@@ -230,9 +236,13 @@ def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
              npread.template_events, t_events, t_anchors, guide.start1, ev_start_t),
             ("c", c_target, rc_trimmed, complement_model, npread.complement_params,
              npread.complement_events, c_events, c_anchors, guide.end1, ev_lo_c)):
-        scaled = scale_model(model, sparams.scale, sparams.shift, sparams.var,
-                             sparams.scale_sd, sparams.var_sd)
-        make_sm = (make_sm_factory(sm_type, scaled, strand, **trained.get(strand, {}))
+        scaled = model
+        if sm_type != "threeStateHdp":
+            scaled = scale_model(model, sparams.scale, sparams.shift, sparams.var,
+                                 sparams.scale_sd, sparams.var_sd)
+        make_sm = (make_sm_factory(sm_type, scaled, strand,
+                                   hdp_density=hdp_density.get(strand),
+                                   **trained.get(strand, {}))
                    if len(strand_events) else None)
         strand_ctx.append({
             "strand": strand, "target": target, "raw_target": raw_target,
@@ -300,6 +310,9 @@ def main(argv=None):
     ap.add_argument("--templateHmm", "-y", default=None,
                     help="trained template HMM to load (vanillaAlign -y)")
     ap.add_argument("--complementHmm", "-z", default=None)
+    ap.add_argument("--templateHdp", "-v", default=None,
+                    help="serialized template NanoporeHDP (threeStateHdp)")
+    ap.add_argument("--complementHdp", "-w", default=None)
     ap.add_argument("--substitute", "-M", default=None)
     ap.add_argument("--threshold", "-D", type=float, default=0.01)
     ap.add_argument("--diagonalExpansion", "-x", type=int, default=50)
@@ -312,7 +325,19 @@ def main(argv=None):
                "fourState" if args.fourState else
                "echelon" if args.echelon else
                "threeStateHdp" if args.threeStateHdp else "vanilla")
-    require_ported(sm_type)
+    # HDP densities (threeStateHdp).  With --substitute the target holds
+    # symbols of the HDP's own alphabet (E/O), so the density ranks k-mers
+    # over that alphabet (alphabet_density_fn) and the jobs take the
+    # host-built grids; else the device builds E from the density table
+    hdp_density = {}
+    for strand, path in (("t", args.templateHdp), ("c", args.complementHdp)):
+        if path:
+            nhdp = deserialize_nhdp(path)
+            hdp_density[strand] = (nhdp.alphabet_density_fn() if args.substitute
+                                   else nhdp.density_logp_fn())
+    if sm_type == "threeStateHdp" and len(hdp_density) < 2:
+        print("threeStateHdp needs --templateHdp and --complementHdp", file=sys.stderr)
+        return 1
     device = resolve_device()
     contig, ref_seq = read_first_sequence(args.reference)
     npread = load_npread(args.npRead)
@@ -333,7 +358,7 @@ def main(argv=None):
                         substitute=args.substitute,
                         template_model=load_pore_model(args.templateModel),
                         complement_model=load_pore_model(args.complementModel),
-                        trained=trained)
+                        trained=trained, hdp_density=hdp_density)
     if prep["status"] != "ok":
         print(f"{args.readLabel} unmapped", file=sys.stderr)
         return 1

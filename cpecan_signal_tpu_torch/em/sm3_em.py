@@ -84,19 +84,19 @@ class _EmBudget:
         self.streamed = 0
         self.n_streamed = 0
 
-    def place(self, prob: pp.SM3Problem) -> tuple[pp.SM3Problem, bool]:
-        """A host-built bucket -> (its tensors, resident?).  Within the budget
-        it is uploaded and stays on the device; past it it stays on the host
-        (pinned, for a CUDA device) and streams through the device per step."""
+    def place(self, prob):
+        """A host-built bucket (a NamedTuple of CPU tensors) -> (its tensors,
+        resident?).  Within the budget it is uploaded and stays on the
+        device; past it it stays on the host (pinned, for a CUDA device) and
+        streams through the device per step (``stream``)."""
         n = _nbytes(prob)
         if self.resident + n <= self.budget:
             self.resident += n
-            return pp.SM3Problem(*(pp.to_device(t.numpy(), self.device)
-                                   for t in prob)), True
+            return type(prob)(*(pp.to_device(t.numpy(), self.device) for t in prob)), True
         self.streamed += n
         self.n_streamed += 1
         if self.device.type == "cuda":
-            prob = pp.SM3Problem(*(t.pin_memory() for t in prob))
+            prob = type(prob)(*(t.pin_memory() for t in prob))
         return prob, False
 
     def summary(self) -> str:
@@ -106,6 +106,14 @@ class _EmBudget:
                 + (f", streamed per-iteration {self.streamed / 1e6:.0f} MB "
                    f"({self.n_streamed} buckets over the {limit} budget)"
                    if self.n_streamed else f" (budget {limit})"))
+
+
+def stream(batch, resident: bool, device: torch.device):
+    """A bucket's tensors on ``device``: as they are when resident, else
+    uploaded without blocking (a NamedTuple of tensors)."""
+    if resident:
+        return batch
+    return type(batch)(*(t.to(device, non_blocking=True) for t in batch))
 
 
 @dataclass
@@ -227,9 +235,7 @@ def bucket_step(bucket: SM3EmBucket, gapx_tab: torch.Tensor, tp_vec: torch.Tenso
     bucket's device): xarr row 12 regathered through xrank (in place),
     tp_scalar broadcast, start/end per problem.  Returns the tensors of
     pipeline.sm3_expectations."""
-    batch = bucket.batch
-    if not bucket.resident:
-        batch = pp.SM3Problem(*(t.to(bucket.device, non_blocking=True) for t in batch))
+    batch = stream(bucket.batch, bucket.resident, bucket.device)
     batch.xarr[:, 12, :] = gapx_tab[batch.xrank.long()]
     B = batch.xrank.shape[0]
     batch = batch._replace(start=start, end=end,

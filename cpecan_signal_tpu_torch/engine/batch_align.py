@@ -8,16 +8,21 @@ prepared, collects all waves with one copy, and re-routes the rare job whose
 pairs overflowed the compact extraction through the full-grid path.  Jobs
 of the symbol machine (fiveState, realign) take the symbol lane of
 engine/readpath.py, whose emissions are gathered on the device; one that
-overflows re-routes to the generic machines' full-grid buckets.  Jobs of the
-generic window machines (vanilla, fourState, echelon) are packed on the
-host into buckets of one machine and one window width, every bucket
-dispatched before any result is awaited, and their posterior grids copied
-back once and thresholded on the host.
+overflows re-routes to the generic machines' full-grid buckets.
+threeStateHdp jobs build their emissions on the device from the HDP density
+table (only window scalars, k-mer ranks and event means are packed on the
+host) and compact their pairs there, with a slot for every passing cell.
+Jobs of the generic window machines (vanilla, fourState, echelon, and
+threeStateHdp with the --substitute alphabet) are packed on the host into
+buckets of one machine and one window width, every bucket dispatched before
+any result is awaited, and their posterior grids copied back once and
+thresholded on the host.
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ import torch
 from ..constants import PAIR_ALIGNMENT_PROB_1
 from ..core.window import WindowBand, smooth_band
 from ..models.state_machines import ECH_GAPX
+from ..ops import fb_kernels as fk
 from . import pipeline as pp
 from . import readpath
 from .align import AlignedPairs, SplitJob, _extract_pairs
@@ -162,16 +168,59 @@ def job_window(band) -> WindowBand:
     return wb if wb.W == 64 else smooth_band(band, width_multiple=128)
 
 
-def _unsupported(job) -> NotImplementedError | None:
-    """The error for a threeStateHdp job, whose machine has no lane in the
-    port yet; None for every job the port aligns."""
-    sm = job.sm
-    if getattr(sm, "hdp_pack", None) is None and sm.spec.name != "threeStateHdp":
-        return None
-    return NotImplementedError(f"{sm.spec.name} jobs need threeStateHdp alignment, "
-                               "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment "
-                               "and HDP EM'; the port aligns threeState, "
-                               "fourState, vanilla, echelon and fiveState jobs")
+class _Placed(NamedTuple):
+    """What the compact decode needs of a job: its window and offsets."""
+
+    wband: WindowBand
+    off_x: int
+    off_y: int
+
+
+def _run_hdp_buckets(jobs, wbands, idxs, threshold, device, out, timing=None) -> None:
+    """threeStateHdp jobs whose machine carries its density table
+    (``sm.hdp_pack``; the JAX _hdp_align_fn / _run_hdp_buckets,
+    engine/batch_align.py:165-279): the host packs only the window scalars,
+    the k-mer ranks and the event means; E is built on the device from the
+    table (``readpath.hdp_emissions``), then the forward and stage-3
+    backward.  Buckets per (table, window width), bounded like the generic
+    buckets.  The raw densities spread a read's posterior over many cells
+    (tens of pairs an event), so the pairs are compacted with a slot for
+    every passing cell: the count is read back (one wait a bucket), then
+    ``readpath._extract_global`` keeps every lane of a diagonal; all buckets
+    are collected with one copy."""
+    t0 = time.perf_counter()
+    groups: dict[tuple, list[int]] = {}
+    for i in idxs:
+        groups.setdefault((id(jobs[i].sm.hdp_pack[0]), wbands[i].W), []).append(i)
+    pending = []
+    for (_tid, W), g_idxs in groups.items():
+        tab0, g0, dg = jobs[g_idxs[0]].sm.hdp_pack[:3]
+        tab = pp.to_device(np.maximum(tab0, 0.0).astype(np.float32), device)
+        for chunk in _generic_chunks(wbands, g_idxs, 3):
+            Dp = max(wbands[i].n_diagonals for i in chunk)
+            plan, (ds, d_last, start, end, tp, x0) = pp.stack_window_scalars(
+                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                 for i in chunk], Dp, device)
+            rank, mean = (np.stack(a) for a in zip(*(pp.hdp_inputs(jobs[i].sm, Dp + 2)
+                                                     for i in chunk)))
+            E = readpath.hdp_emissions(tab, g0, dg or 1.0, pp.to_device(rank, device),
+                                       pp.to_device(mean, device),
+                                       ds[:, :Dp, 0, fk.DS_W0], d_last, W)
+            p, _totals = pp.run_window(plan, W, pp.WindowProblem(E, ds, d_last, start,
+                                                                 end, tp, x0))
+            del E
+            Kg = readpath._round_up(int((p >= np.float32(threshold)).sum()) + 1, 2048)
+            real = torch.ones(len(chunk), dtype=torch.bool, device=device)
+            cnt, over, outq, outi = readpath._extract_global(p, threshold, Kg, real, L=W)
+            staged = [(i, _Placed(wbands[i], jobs[i].off_x, jobs[i].off_y), plan)
+                      for i in chunk]
+            pending.append((staged, list(range(len(chunk))),
+                            torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
+    if timing is not None:
+        timing["host_pack"] = timing.get("host_pack", 0.0) + (time.perf_counter() - t0)
+    for ji, pairs in readpath.collect_fast_jobs(pending, timing=timing).items():
+        assert pairs is not None, ji   # a slot for every passing cell
+        out[ji] = pairs
 
 
 def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
@@ -180,16 +229,19 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
     SplitJob lists (so split/band prep runs lazily); jobs are staged as they
     arrive and dispatched in waves of ~WAVE_EVENTS events, so the card
     computes while the host prepares the remaining reads; one copy then
-    collects every wave.  Jobs of the generic window machines are bucketed
-    by (machine, window width) and run after the threeState waves are
-    collected, symbol (fiveState) jobs through the symbol lane after them.
-    Returns (jobs, pairs) with pairs aligned to jobs.  threeStateHdp jobs
-    raise NotImplementedError."""
+    collects every wave.  Symbol (fiveState) jobs take the symbol lane after
+    the threeState waves are collected, threeStateHdp jobs whose machine
+    carries its density table their device-built buckets after them, and
+    the jobs of the generic window machines (threeStateHdp ones without a
+    table among them: the --substitute alphabet) are bucketed by (machine,
+    window width) and run last.  Returns (jobs, pairs) with pairs aligned
+    to jobs."""
     t0 = time.perf_counter()
     jobs: list[SplitJob] = []
     wbands = []
     staged_wave: list = []
     staged_sym: list = []
+    hdp_idxs: list[int] = []
     pending: list = []
     generic: dict[tuple, list[int]] = {}
     ev_acc = 0
@@ -208,10 +260,10 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
             jobs.append(j)
             wb = job_window(j.band)
             wbands.append(wb)
+            if getattr(j.sm, "hdp_pack", None) is not None:
+                hdp_idxs.append(i)
+                continue
             if getattr(j.sm, "sm3_pack", None) is None:
-                err = _unsupported(j)
-                if err is not None:
-                    raise err
                 sym = readpath.stage_symbol_job(j, wb)
                 if sym is not None:
                     staged_sym.append((i, *sym))
@@ -243,6 +295,8 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
                 generic.setdefault((jobs[ji].sm.spec.name, wbands[ji].W), []).append(ji)
             else:
                 out[ji] = pairs
+    if hdp_idxs:
+        _run_hdp_buckets(jobs, wbands, hdp_idxs, threshold, device, out, timing)
     if generic:
         _run_generic_buckets(jobs, wbands, generic, threshold, device, out, timing)
     return jobs, out

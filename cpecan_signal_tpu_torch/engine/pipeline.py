@@ -305,22 +305,14 @@ def _plan_channels(sm) -> tuple[EnginePlan, int]:
     return plan, plan.n_eclasses + len(cells)
 
 
-def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
-                         ragged_left: bool, ragged_right: bool):
-    """Pack one problem for the generic kernels (make_window_pallas_problem,
-    engine/pallas_pipeline.py:314-360) into ``E_out``, a zeroed (Dp+2, C+T,
-    W) f32 array, and return (plan, the other WindowProblem fields as numpy).
-    Emissions and transition rows saturate at NEG_INF, so the f32 kernels
-    stay NaN-free (vanilla's all-zero emission class comes with log(0)
-    transition rows)."""
-    plan, winp = prepare_window_inputs(sm, wband, ragged_left=ragged_left,
-                                       ragged_right=ragged_right)
-    D = wband.n_diagonals
-    C = winp.E.shape[1]
-    assert C == plan.n_eclasses and E_out.shape[1] == C + winp.TP.shape[1]
-    np.maximum(winp.E[:D], NEG_INF, out=E_out[:D, :C], casting="unsafe")
-    np.maximum(winp.TP[:D], NEG_INF, out=E_out[:D, C:], casting="unsafe")
-
+def window_scalars(sm, wband: WindowBand, Dp: int, *, ragged_left: bool,
+                   ragged_right: bool):
+    """The machine's plan and every WindowProblem field of one problem but E,
+    as numpy: (diag scalars (Dp+1, 1, 8), d_last, start, end, tp_scalar,
+    x0), padded to Dp diagonals (make_window_pallas_problem,
+    engine/pallas_pipeline.py:314-360).  Lanes whose E the device builds
+    (the threeStateHdp buckets) need nothing more from the host."""
+    plan, tp_scalar, _cells = _build_plan(sm, "exact")
     ds, w0 = _window_diag_scalars(wband, Dp)
     # DS_XS (the x-window step) for the stage-4 window tallies
     x_of_j0 = (np.arange(Dp) + w0) // 2
@@ -329,9 +321,58 @@ def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
     x0 = np.empty(Dp + 1, dtype=np.int32)
     x0[:Dp] = x_of_j0
     x0[Dp] = x_of_j0[Dp - 1]
-    tp_scalar = winp.tp_scalar if winp.tp_scalar.size else np.zeros(1)
-    return plan, (ds, np.int32(D - 1), _san(winp.start), _san(winp.end),
+    start = sm.ragged_start if ragged_left else sm.start
+    end = sm.ragged_end if ragged_right else sm.end
+    tp_scalar = tp_scalar if tp_scalar.size else np.zeros(1)
+    return plan, (ds, np.int32(wband.n_diagonals - 1), _san(start), _san(end),
                   _san(tp_scalar), x0)
+
+
+def hdp_inputs(sm, Lc: int) -> tuple[np.ndarray, np.ndarray]:
+    """(k-mer ranks by grid x, event means by grid y) of a threeStateHdp
+    machine, padded to Lc with their last values (slot 0 of the means is
+    y = -1): the arrays readpath.hdp_emissions indexes."""
+    r = np.asarray(sm.kmer_ranks, dtype=np.int32)
+    rank = np.full(Lc, r[-1], dtype=np.int32)
+    rank[:len(r)] = r
+    ev = np.asarray(sm.event_means, dtype=np.float32)
+    mean = np.zeros(Lc, dtype=np.float32)
+    mean[1:1 + len(ev)] = ev
+    if len(ev):
+        mean[1 + len(ev):] = ev[-1]
+    return rank, mean
+
+
+def stack_window_scalars(items, Dp: int, device: torch.device):
+    """(plan, [diag scalars, d_last, start, end, tp_scalar, x0] stacked on
+    ``device``) of [(sm, wband, ragged_left, ragged_right)], one machine,
+    padded to Dp diagonals: every WindowProblem field but E."""
+    plan, rows = None, []
+    for sm, wb, rl, rr in items:
+        iplan, rest = window_scalars(sm, wb, Dp, ragged_left=rl, ragged_right=rr)
+        assert plan is None or iplan == plan, sm.spec.name
+        plan = iplan
+        rows.append(rest)
+    return plan, [to_device(np.stack(col), device) for col in zip(*rows)]
+
+
+def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
+                         ragged_left: bool, ragged_right: bool):
+    """Pack one problem for the generic kernels (make_window_pallas_problem,
+    engine/pallas_pipeline.py:314-360) into ``E_out``, a zeroed (Dp+2, C+T,
+    W) f32 array, and return (plan, the other WindowProblem fields as numpy,
+    ``window_scalars``).  Emissions and transition rows saturate at NEG_INF,
+    so the f32 kernels stay NaN-free (vanilla's all-zero emission class
+    comes with log(0) transition rows)."""
+    plan, winp = prepare_window_inputs(sm, wband, ragged_left=ragged_left,
+                                       ragged_right=ragged_right)
+    D = wband.n_diagonals
+    C = winp.E.shape[1]
+    assert C == plan.n_eclasses and E_out.shape[1] == C + winp.TP.shape[1]
+    np.maximum(winp.E[:D], NEG_INF, out=E_out[:D, :C], casting="unsafe")
+    np.maximum(winp.TP[:D], NEG_INF, out=E_out[:D, C:], casting="unsafe")
+    return window_scalars(sm, wband, Dp, ragged_left=ragged_left,
+                          ragged_right=ragged_right)
 
 
 def make_window_problem(sm, wband: WindowBand, *, device: torch.device,

@@ -40,9 +40,11 @@ class EnginePlan:
     n_eclasses: int = 0
 
 
-def _build_plan(sm: StateMachine, logadd: str) -> tuple[EnginePlan, np.ndarray, list]:
-    """Split the state machine's transition values into a scalar vector and a
-    list of per-cell source arrays (per-x or per-y, resolved later)."""
+def plan_key_names(sm: StateMachine) -> tuple[list[str], list[str]]:
+    """(scalar_keys, cell_keys) in the channel order _build_plan assigns
+    (engine/fb.py:80-93): which transition key each per-cell channel of E
+    carries, for callers that rebuild those channels on the device (the
+    vanilla E-step's per-bin tables)."""
     scalar_keys: list[str] = []
     cell_keys: list[str] = []
     for e in sm.spec.edges:
@@ -52,6 +54,13 @@ def _build_plan(sm: StateMachine, logadd: str) -> tuple[EnginePlan, np.ndarray, 
                 scalar_keys.append(k)
             elif tv.kind != "s" and k not in cell_keys:
                 cell_keys.append(k)
+    return scalar_keys, cell_keys
+
+
+def _build_plan(sm: StateMachine, logadd: str) -> tuple[EnginePlan, np.ndarray, list]:
+    """Split the state machine's transition values into a scalar vector and a
+    list of per-cell source arrays (per-x or per-y, resolved later)."""
+    scalar_keys, cell_keys = plan_key_names(sm)
     edges = tuple(
         EdgePlan(
             e.src, e.frm, e.to, e.eclass,

@@ -29,7 +29,8 @@ import torch
 
 from ..constants import KMER_SENTINEL, NUM_OF_KMERS, PAIR_ALIGNMENT_PROB_1
 from ..core.window import WindowBand
-from ..models.state_machines import LOG_TENTH
+from ..models.state_machines import (LOG_TENTH, _GAPX_CLASS, _GAPY_CLASS,
+                                     _MATCH_CLASS)
 
 from ..ops import fb_kernels as fk
 from . import pipeline as pp
@@ -652,6 +653,86 @@ def symbol_emissions(mt, gx, gy, cxp, cyp, w0, d_last, W: int) -> torch.Tensor:
     E[:, :Dp, 1] = torch.where(live, mt.reshape(-1)[ix * mt.shape[1] + iy], 0.0)
     E[:, :Dp, 2] = torch.where(live, gy[iy], 0.0)
     return E
+
+
+def hdp_emissions(tab, g0: float, dg: float, rank, meanp, w0, d_last, W: int
+                  ) -> torch.Tensor:
+    """threeStateHdp emission grid E (B, Dp+2, 3, W) of a bucket, on its
+    device: the HDP density of each cell's k-mer at its event mean, the grid
+    interpolation of dir_proc_density (hdp.c:2577-2601) that both JAX
+    builders do in jnp (engine/batch_align.py:180-211,
+    em/pallas_em.py:514-545).  A cell (d, j) lies at x = (d + xmy) / 2, y =
+    (d - xmy) / 2 with xmy = w0[b, d] + 2j; ``rank`` (B, Lc) and ``meanp``
+    (B, Lc) are indexed by x and y clipped to [0, Lc - 1] and pick the row
+    of ``tab`` (R, ng) f32 and the event mean.  The density, linear on the
+    grid g0 + i dg and clamped at >= 0, fills the match and gapY channels
+    (the raw density, the reference's quirk: models/state_machines
+    .make_signal_sm3_hdp), gapX gets log 0.1; rows d > d_last and the two
+    rows past Dp are zero.  The f32 operations are the JAX ones, in its
+    order."""
+    B, Dp = w0.shape
+    dev = w0.device
+    Lc = rank.shape[1]
+    ng = tab.shape[1]
+    d = torch.arange(Dp, dtype=torch.int32, device=dev)[None, :, None]
+    xmy = w0[:, :, None] + 2 * torch.arange(W, dtype=torch.int32, device=dev)
+    rows = (torch.arange(B, device=dev) * Lc)[:, None, None]
+    r = rank.reshape(-1)[rows + ((d + xmy) // 2).clamp(0, Lc - 1)].long()
+    mu = meanp.reshape(-1)[rows + ((d - xmy) // 2).clamp(0, Lc - 1)]
+    del xmy
+    # g0 and dg as f32 tensors on the device: a CUDA division by a host
+    # scalar multiplies by its reciprocal, which rounds otherwise
+    g0, dg = (torch.tensor(np.float32(v), device=dev) for v in (g0, dg))
+    pos = torch.clamp((mu - g0) / dg, 0.0, ng - 1 - 1e-6)
+    del mu
+    i0 = pos.to(torch.int32)
+    t = pos - i0
+    flat = tab.reshape(-1)
+    r = r * ng
+    v = ((1.0 - t) * flat[r + i0] + t * flat[r + torch.clamp_max(i0 + 1, ng - 1)])
+    del r, i0, t, pos
+    dens = torch.clamp_min(v, 0.0)
+    live = d <= d_last[:, None, None]
+    E = torch.zeros((B, Dp + 2, 3, W), dtype=torch.float32, device=dev)
+    E[:, :Dp, _GAPX_CLASS] = torch.where(live, LOG_TENTH, 0.0)
+    E[:, :Dp, _MATCH_CLASS] = torch.where(live, dens, 0.0)
+    E[:, :Dp, _GAPY_CLASS] = E[:, :Dp, _MATCH_CLASS]
+    return E
+
+
+def extract_compact(p: torch.Tensor, threshold: float, K: int, L: int | None = None):
+    """Per-problem compaction of threshold-passing cells (the JAX
+    ``_extract_compact``, engine/readpath.py:350-390): p (B, Dp, W) ->
+    (count (B,) int32, flat cell indices d * W + j (B, K) int32) in
+    row-major (d, j) order.  Stage 1 keeps at most L (default 16) passing
+    lanes of each diagonal, stage 2 compacts the slots.  A problem with a
+    diagonal of more than L passing lanes gets count K + 1; one with more
+    than K passing cells gets its true count: either way count > K means
+    that its list is incomplete.  L = W never drops a lane."""
+    L = _EXTRACT_L if L is None else L
+    B, Dp, W = p.shape
+    dev = p.device
+    m = p >= np.float32(threshold)
+    csl = torch.cumsum(m.to(torch.int32), dim=2)
+    cnt_d = csl[:, :, -1]
+    lane = torch.arange(W, dtype=torch.int32, device=dev).expand(B, Dp, W)
+    slot = torch.where(m & (csl <= L), csl - 1, L).long()
+    del m, csl
+    lane_idx = torch.full((B, Dp, L + 1), W, dtype=torch.int32, device=dev)
+    lane_idx.scatter_(2, slot, lane)
+    del slot
+    valid2 = (torch.arange(L, device=dev)[None, None, :]
+              < torch.clamp_max(cnt_d, L)[:, :, None]).reshape(B, Dp * L)
+    f2 = (torch.clamp_max(lane_idx[:, :, :L], W - 1)
+          + torch.arange(Dp, dtype=torch.int32, device=dev)[None, :, None] * W
+          ).reshape(B, Dp * L)
+    idx = torch.cumsum(valid2.to(torch.int32), dim=1) - 1
+    total = idx[:, -1] + 1
+    tgt = torch.where(valid2, torch.clamp_max(idx, K), K).long()
+    outi = torch.zeros((B, K + 1), dtype=torch.int32, device=dev)
+    outi.scatter_(1, tgt, f2)          # slot K collects the discarded cells
+    cnt = torch.where((cnt_d > L).any(dim=1), K + 1, total).to(torch.int32)
+    return cnt, outi[:, :K]
 
 
 def symbol_buckets(staged) -> list[tuple]:

@@ -1,9 +1,12 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version on the same CUDA tensors (at the threeState, vanilla,
 echelon and fiveState plans, the last with the backward kernel's edge-group
-posterior channels), and the device-batched slice on the card against the
-CPU plain path (threeState, vanilla, and the nucleotide E-step, whose
-tallies must also agree bit for bit between two card runs).
+posterior channels, and at the stage-4 configurations of the vanilla and
+threeStateHdp E-steps), the threeStateHdp emission grid, and the
+device-batched slice on the card against the CPU plain path (threeState,
+vanilla and threeStateHdp alignment, and the nucleotide, vanilla and
+threeStateHdp E-steps, whose tallies must also agree bit for bit between two
+card runs).
 
 Every test needs a card and skips without one.  The file imports no jax, so
 on a machine with a card and without jax it runs as
@@ -546,3 +549,204 @@ def test_cuda_ring_edges_match_plain(Dp, cuda_device, tmp_path):
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
     torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=1e-3)
     assert float(p3.sum()) > 0.25 * float(b.d_last.sum())
+
+
+# ---------------------------------------------------------------------------
+# The vanilla and threeStateHdp E-steps and threeStateHdp alignment
+# ---------------------------------------------------------------------------
+
+HDP_GRID = (30.0, 90.0, 1200)
+
+
+def _hdp_table(pore, device):
+    """(table, g0, dg): a density table on HDP_GRID whose row of a k-mer is
+    a normal density (sd 1.5 pA) at the pore model's level."""
+    grid = np.linspace(*HDP_GRID[:2], HDP_GRID[2])
+    level = np.concatenate([pore.match_model[:-2, 0], [60.0, 60.0]])
+    tab = np.exp(-0.5 * ((grid[None, :] - level[:, None]) / 1.5) ** 2) / (1.5 * 2.5066283)
+    return pp.to_device(tab.astype(np.float32), device), grid[0], grid[1] - grid[0]
+
+
+def _em_problems(machine, pore, rng, W, Dp, B, device):
+    """(plan, WindowProblem, wgroups, pgroups) of B problems (4 reads
+    repeated, anchored every 20 events) of the vanilla E-step (the 5
+    transition channels gathered on the card through the skip-bin grid) or
+    the threeStateHdp E-step (E from the density table), padded to Dp."""
+    from cpecan_signal_tpu_torch.em import hdp_em, vanilla_em
+    from cpecan_signal_tpu_torch.engine import readpath
+    from cpecan_signal_tpu_torch.engine.plan import plan_key_names
+    from cpecan_signal_tpu_torch.models import state_machines as sms
+
+    cases = []
+    while len(cases) < 4:
+        target = "".join(rng.choice(list("ACGT"), int(0.40 * Dp)))
+        events, path = syn.simulate_events(pore, target, rng)
+        n_kmers = len(target) - 5
+        wb = smooth_band(band_construct(syn.path_anchors(path, n_kmers, len(events), 20),
+                                        n_kmers, len(events), 20), width_multiple=W)
+        if wb.W == W and wb.n_diagonals <= Dp:
+            cases.append((target, events, wb, bool(len(cases) % 2), len(cases) < 2))
+    idx = torch.arange(B) % 4
+    cpu = torch.device("cpu")
+    if machine == "vanilla":
+        probs, keys = [], []
+        for target, events, wb, rl, rr in cases:
+            sm = sms.make_signal_vanilla(pore, target, events, "template")
+            plan, prob = pp.make_window_problem(sm, wb, device=cpu, ragged_left=rl,
+                                                ragged_right=rr, pad_d=Dp)
+            probs.append(prob)
+            keys.append(vanilla_em._bin_keys(sm, wb, prob.x0.numpy(), Dp))
+        batch = vanilla_em.VanillaBatch(*pp.stack_window_problems(probs),
+                                        *(torch.from_numpy(np.stack(c)) for c in zip(*keys)))
+        batch = vanilla_em.VanillaBatch(*(f[idx].to(device) for f in batch))
+        tabs, _s = sms.vanilla_transition_tables(pore.skip_bins, "template")
+        cells = batch.bin_grid.long()
+        for c, k in enumerate(plan_key_names(sm)[1]):
+            row = pp.to_device(np.maximum(tabs[k], pp.NEG_INF).astype(np.float32), device)
+            batch.E[:, :, plan.n_eclasses + c, :] = row[cells]
+        return plan, pp.WindowProblem(*batch[:7]), vanilla_em.vanilla_wgroups(plan), None
+    items = [(sms.make_signal_sm3_hdp(hdp_em._zero_density, t, e), wb, rl, rr)
+             for t, e, wb, rl, rr in cases]
+    plan, fields = pp.stack_window_scalars(items, Dp, cpu)
+    rank, mean = (torch.from_numpy(np.stack(a)) for a in zip(
+        *(pp.hdp_inputs(sm, Dp + 2) for sm, *_r in items)))
+    ds, dl, start, end, tp, x0 = (f[idx].to(device) for f in fields)
+    E = readpath.hdp_emissions(*_hdp_table(pore, device), rank[idx].to(device),
+                               mean[idx].to(device), ds[:, :Dp, 0, fk.DS_W0], dl, W)
+    return (plan, pp.WindowProblem(E, ds, dl, start, end, tp, x0), pp.sm3_wgroups(plan),
+            hdp_em.hdp_pgroups(plan))
+
+
+@pytest.mark.parametrize("machine, groups", [
+    ("vanilla", (((0,), (1,)), None)),
+    ("threeStateHdp", (((0, 1, 2),), ((3,), (4,), (5,))))])
+def test_cuda_em_stage4_configs_match_plain(machine, groups, cuda_device, tmp_path):
+    """The two stage-4 configurations of the vanilla and threeStateHdp
+    E-steps at W = 128, Dp = 4096, B = 64, against the plain versions: the
+    vanilla plan (7 edges, 3 emission classes, 5 transition channels) with
+    window groups (beta, alpha), the threeStateHdp plan (8 edges) with one
+    posterior channel per middle edge into match."""
+    rng = np.random.default_rng(53 + len(machine))
+    pore = _pore(tmp_path, rng)
+    W, Dp = 128, 4096
+    plan, b, wgroups, pgroups = _em_problems(machine, pore, rng, W, Dp, 64, cuda_device)
+    assert (wgroups, pgroups) == groups
+    edges = pp.to_device(edge_table(plan), cuda_device)
+    fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    F = fk.forward_sm3(*fargs)
+    args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    kernel = "backward_em" if pgroups is None else "backward_pgroups"
+    before = fk.LAUNCHES[kernel]
+    got = fk.backward_sm3(*args, stages=4, wgroups=wgroups, pgroups=pgroups)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[kernel] == before + 1
+    torch.testing.assert_close(F, fk.forward_sm3_ref(*fargs), rtol=1e-5, atol=1e-3)
+    want = fk.backward_sm3_ref(*args, 4, wgroups, None, pgroups)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=1e-3)
+    assert float(got[0].sum()) > 0.25 * float(b.d_last.sum())
+
+
+def test_cuda_hdp_emissions_match_cpu(cuda_device, tmp_path):
+    """readpath.hdp_emissions on the card against the CPU on the same
+    inputs (rtol 1e-6: the same f32 operations)."""
+    from cpecan_signal_tpu_torch.engine import readpath
+
+    rng = np.random.default_rng(59)
+    pore = _pore(tmp_path, rng)
+    tab, g0, dg = _hdp_table(pore, cuda_device)
+    B, Dp, W, Lc = 8, 600, 128, 602
+    w0 = torch.from_numpy(np.cumsum(rng.choice([-1, 1], (B, Dp)), axis=1).astype(np.int32)
+                          - 40)
+    rank = torch.from_numpy(rng.integers(0, 4098, (B, Lc)).astype(np.int32))
+    mean = torch.from_numpy(rng.uniform(20, 100, (B, Lc)).astype(np.float32))
+    d_last = torch.from_numpy(rng.integers(300, Dp, B).astype(np.int32))
+    got = readpath.hdp_emissions(tab, g0, dg, rank.to(cuda_device), mean.to(cuda_device),
+                                 w0.to(cuda_device), d_last.to(cuda_device), W).cpu()
+    want = readpath.hdp_emissions(tab.cpu(), g0, dg, rank, mean, w0, d_last, W)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert float(got[:, :, 1].max()) > 0.1
+
+
+def _hdp_nhdp(pore, model_path):
+    """A flat NanoporeHDP (grid (30, 120, 120), a short chain) on two points
+    near each k-mer's level."""
+    from cpecan_signal_tpu_torch.core.kmers import rank_to_kmer
+    from cpecan_signal_tpu_torch.hdp.nanopore import build_nanopore_hdp
+
+    rng = np.random.default_rng(5)
+    nhdp = build_nanopore_hdp("flat", model_path, alphabet="ACGT", grid=(30.0, 120.0, 120),
+                              seed=5)
+    nhdp.set_assignments([rank_to_kmer(r) for r in range(4096)] * 2,
+                         list(np.tile(pore.match_model[:4096, 0], 2)
+                              + rng.normal(0, 0.6, 8192)))
+    nhdp.gibbs(num_samples=20, burn_in=100, thinning=5)
+    nhdp.finalize()
+    return nhdp
+
+
+def test_cuda_vanilla_and_hdp_esteps_match_cpu(cuda_device, tmp_path):
+    """The vanilla and threeStateHdp E-steps on the card against the CPU
+    plain path (tallies rtol 1e-4 + atol 1e-5, likelihood 1e-5 relative;
+    the assignments of the HDP step 99 % shared: a cell within p's atol of
+    the threshold may fall on either side), and two card runs equal bit for
+    bit (no atomics)."""
+    from collections import Counter
+
+    from cpecan_signal_tpu_torch.em import hdp_em, vanilla_em
+
+    rng = np.random.default_rng(61)
+    pore = _pore(tmp_path, rng)
+    cases = _cases(pore, rng, 8, 128)
+    jobs = [sm3_em.EmJob(pore, t, e, band, bool(i % 2), i < 4)
+            for i, (t, e, band, _wb) in enumerate(cases)]
+    before = fk.LAUNCHES["backward_em"]
+    runs = [vanilla_em.vanilla_em_step(
+        vanilla_em.build_vanilla_em_buckets(jobs, "t", device=dev), pore.skip_bins)
+        for dev in (cuda_device, cuda_device, torch.device("cpu"))]
+    assert fk.LAUNCHES["backward_em"] > before
+    (b1, l1), (b2, l2), (bw, lw) = runs
+    np.testing.assert_array_equal(b1, b2)
+    assert l1 == l2
+    np.testing.assert_allclose(b1, bw, rtol=1e-4, atol=1e-5)
+    assert abs(l1 - lw) <= 1e-5 * abs(lw) and b1.sum() > 1.0
+
+    nhdp = _hdp_nhdp(pore, str(tmp_path / "synthetic.model"))
+    before = fk.LAUNCHES["backward_pgroups"]
+    runs = [hdp_em.hdp_em_step(hdp_em.build_hdp_em_buckets(jobs, device=dev), nhdp, None,
+                               0.01)
+            for dev in (cuda_device, cuda_device, torch.device("cpu"))]
+    assert fk.LAUNCHES["backward_pgroups"] > before
+    (t1, l1, k1, m1), again, (tw, lw, kw, mw) = runs
+    assert (t1.tolist(), l1, k1, m1) == (again[0].tolist(), *again[1:])
+    np.testing.assert_allclose(t1, tw, rtol=1e-4, atol=1e-5)
+    assert abs(l1 - lw) <= 1e-5 * abs(lw)
+    shared = sum((Counter(zip(k1, m1)) & Counter(zip(kw, mw))).values())
+    assert len(k1) > 100 and shared >= 0.99 * max(len(k1), len(kw))
+
+
+def test_cuda_hdp_slice_matches_cpu(cuda_device, tmp_path):
+    """batch_align_jobs of threeStateHdp jobs (E built on the card from the
+    density table, pairs compacted on the card) against the CPU plain
+    path, ragged ends mixed."""
+    from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3_hdp
+
+    rng = np.random.default_rng(67)
+    pore = _pore(tmp_path, rng)
+    density = _hdp_nhdp(pore, str(tmp_path / "synthetic.model")).density_logp_fn()
+    jobs = [SplitJob(make_signal_sm3_hdp(density, t, e), band, 0, 0, bool(i % 2), i < 4)
+            for i, (t, e, band, _wb) in enumerate(_cases(pore, rng, 8, 64, expansion=6))]
+    before = fk.LAUNCHES["backward"]
+    got = batch_align_jobs(jobs, AlignmentParams().threshold, device=cuda_device)
+    assert fk.LAUNCHES["backward"] > before
+    want = batch_align_jobs(jobs, AlignmentParams().threshold, device=torch.device("cpu"))
+    assert sum(len(g.probs) for g in got) > 100
+    for g, w in zip(got, want):
+        dg = {(x, y): q for q, x, y in g.as_tuples()}
+        dw = {(x, y): q for q, x, y in w.as_tuples()}
+        common = set(dg) & set(dw)
+        assert len(common) >= max(len(dg), len(dw), 1) - 1
+        assert all(abs(dg[k] - dw[k]) < 1.2e-3 * 1e7 for k in common)

@@ -49,8 +49,6 @@ from test_pallas_em import _host_estep, _reads_and_model
 CPU = torch.device("cpu")
 KD = 2
 P_ATOL = 1e-4
-# the ROADMAP item that threeStateHdp waits for, named by its title
-HDP_ITEM = "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment and HDP EM'"
 T_ATOL, T_RTOL = 1e-3, 1e-5
 STEP_RTOL, STEP_ATOL, LIK_RTOL = 1e-4, 1e-4, 1e-5
 HOST_RTOL, HOST_ATOL = 1e-3, 1e-4
@@ -237,7 +235,8 @@ def test_train_models_resumes_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("what, kwargs", [
-    ("ROADMAP queue 1, 'vanilla EM'", dict(sm_type="vanilla")),
+    ("ROADMAP queue 1, 'Host engines'", dict(sm_type="threeStateHdp", template_hdp="t.nhdp",
+                                             complement_hdp="c.nhdp")),
     ("ROADMAP queue 1, 'Host engines'", dict(engine="host")),
     ("ROADMAP queue 1, 'Host engines'", dict(jobs=2)),
 ])
@@ -256,5 +255,5 @@ def test_train_models_main_rejects_hdp_flags(flag):
     being ignored by the threeState run."""
     from cpecan_signal_tpu_torch.cli import train_models as ttm
 
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}: .*{HDP_ITEM}"):
+    with pytest.raises(ValueError, match=f"{flag[0]}: only --threeStateHdp training"):
         ttm.main(["-r", "ref.fa", "-d", "reads", "-T", "m", "-C", "m", *flag])

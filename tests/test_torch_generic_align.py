@@ -22,8 +22,6 @@ from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 from test_readpath_random import _pairs_match, _rand_pore
 
 CPU = torch.device("cpu")
-# the ROADMAP item that threeStateHdp waits for, named by its title
-HDP_ITEM = "ROADMAP queue 1, 'The hdp package, threeStateHdp alignment and HDP EM'"
 MAKERS = {
     "vanilla": lambda pore, t, e, i: jsm.make_signal_vanilla(
         pore, t, e, "template" if i % 2 else "complement"),
@@ -109,19 +107,31 @@ def test_generic_buckets_split_by_size(monkeypatch):
 
 
 def test_threestatehdp_jobs_raise():
-    """threeStateHdp alignment waits for the hdp package (ROADMAP queue 1,
-    'The hdp package, threeStateHdp alignment and HDP EM'): its jobs and
-    its CLI flag raise, naming the item."""
+    """threeStateHdp jobs align: one whose density carries no table (the
+    --substitute route) takes the generic buckets beside a fourState job,
+    within the JAX package's pairs; the CLI factory of threeStateHdp
+    without a density raises, naming the options that give one, and that
+    of a machine the CLI does not align (fiveState) raises too."""
     from cpecan_signal_tpu_torch.cli import vanilla_align as tva
 
-    _params, cases = _cases("fourState", 59, 1, 30, 40)
+    params, cases = _cases("fourState", 59, 1, 30, 40)
     sm, band, *_r = cases[0]
-    hdp = jsm.make_signal_sm3_hdp(lambda r, m: np.zeros(np.broadcast(r, m).shape),
-                                  "ACGTACGTACGTAC", np.zeros((8, 3)))
-    with pytest.raises(NotImplementedError, match=HDP_ITEM):
-        tba.batch_align_jobs([SplitJob(sm, band, 0, 0, True, True),
-                              SplitJob(hdp, band, 0, 0, True, True)], 0.01, device=CPU)
-    with pytest.raises(NotImplementedError, match=HDP_ITEM):
+    rng = np.random.default_rng(61)
+    target = "".join(rng.choice(list("ACGT"), 14))
+    events = np.column_stack([rng.uniform(0.0, 1.0, 8), np.full(8, 2.0), np.full(8, 0.01)])
+    hdp = jsm.make_signal_sm3_hdp(lambda r, m: np.clip(1.0 - np.abs(m - 0.5), 0, None)
+                                  + 0.01 * (r % 7), target, events)
+    assert getattr(hdp, "hdp_pack", None) is None
+    hband = band_construct(np.zeros((0, 2), np.int64), 9, 8, 4)
+    jobs = [(sm, band), (hdp, hband)]
+    got = tba.batch_align_jobs([SplitJob(m, b, 0, 0, True, True) for m, b in jobs], 0.01,
+                               device=CPU)
+    want = jba.batch_align_jobs([JSplitJob(m, b, 0, 0, True, True) for m, b in jobs], 0.01,
+                                interpret=True)
+    assert len(got[1].probs) > 0
+    for g, w in zip(got, want):
+        _pairs_match(g, w)
+    with pytest.raises(ValueError, match="--templateHdp, --complementHdp"):
         tva.make_sm_factory("threeStateHdp", None, "t")
     with pytest.raises(ValueError, match="unsupported state machine"):
         tva.make_sm_factory("fiveState", None, "t")

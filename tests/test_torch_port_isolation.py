@@ -215,9 +215,42 @@ def _case_amap(seed):
     return out
 
 
+def _case_hdp_nanopore(seed):
+    from cpecan_signal_tpu.hdp import nanopore as jn
+    from cpecan_signal_tpu_torch.hdp import nanopore as tn
+
+    rng = np.random.default_rng(seed)
+    mus, taus = rng.uniform(40, 90, 200), rng.uniform(0.5, 2.0, 200)
+    out = []
+    for mod in (jn, tn):
+        arrs = [np.array(mod.mle_normal_inverse_gamma(mus, taus))]
+        for alphabet in ("ACGT", "ACEGOT"):
+            for topology in mod.HDP_TYPES:
+                parents, depth = mod._topology_parents(topology, alphabet, 3)
+                arrs += [parents, np.array([depth])]
+            ids = [mod.kmer_id(k, alphabet) for k in ("AAA", "CGT", "TTA")]
+            arrs += [np.array(ids), np.array([mod.id_to_kmer(i, alphabet, 3) == k
+                                              for i, k in zip(ids, ("AAA", "CGT", "TTA"))])]
+        out.append(arrs)
+    return out
+
+
+def _case_hdp_metrics(seed):
+    from cpecan_signal_tpu.hdp import metrics as jm
+    from cpecan_signal_tpu_torch.hdp import metrics as tm
+
+    rng = np.random.default_rng(seed)
+    grid = np.linspace(30, 90, 200)
+    p, q = rng.uniform(0.01, 1, 200), rng.uniform(0.01, 1, 200)
+    return [[np.array([m.kl_divergence(grid, p, q), m.hellinger_distance(grid, p, q),
+                       m.l2_distance(grid, p, q), m.shannon_jensen_distance(grid, p, q)])]
+            for m in (jm, tm)]
+
+
 @pytest.mark.parametrize("case", ["make_signal_sm3", "band_construct+smooth_band",
                                   "load_npread", "fast5_to_npread", "sequence_kmer_ranks",
-                                  "ContinuousPairHmm.to_sm3_params", "amap"])
+                                  "ContinuousPairHmm.to_sm3_params", "amap",
+                                  "hdp.nanopore", "hdp.metrics"])
 def test_copied_host_module_matches_jax(case, tmp_path):
     """The port's copy of a host module gives exactly what the JAX package's
     module gives, on the same numpy-seeded input."""
@@ -230,6 +263,8 @@ def test_copied_host_module_matches_jax(case, tmp_path):
         "sequence_kmer_ranks": lambda: _case_kmers(seed),
         "ContinuousPairHmm.to_sm3_params": lambda: _case_hmm(seed),
         "amap": lambda: _case_amap(seed),
+        "hdp.nanopore": lambda: _case_hdp_nanopore(seed),
+        "hdp.metrics": lambda: _case_hdp_metrics(seed),
     }[case]()
     assert len(want) == len(got)
     for w, g in zip(want, got):
@@ -253,7 +288,7 @@ def test_copies_name_their_source():
             if f"Copied from ``cpecan_signal_tpu/{rel}``" in doc:
                 copies.append(rel)
                 assert os.path.exists(os.path.join(jax_root, rel)), rel
-    assert len(copies) == 16, copies
+    assert len(copies) == 20, copies
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):

@@ -145,21 +145,31 @@ def test_run_fast_jobs_and_pad_window(cases, port_run):
 
 
 def test_unported_machines_raise():
-    """Jobs of a machine the port has no lane for (threeStateHdp) raise
-    NotImplementedError naming their ROADMAP item; nothing else runs in
-    their place.  fiveState jobs, which raised until the symbol lane was
-    ported, align."""
+    """Every machine of the JAX package's batch path has a lane in the port:
+    threeStateHdp jobs, which raised until the hdp package was ported, align
+    on their device-built emissions against the JAX package's pairs, and
+    fiveState jobs, which raised until the symbol lane was ported, align."""
+    from cpecan_signal_tpu.engine.batch_align import batch_align_jobs as jalign
     from cpecan_signal_tpu.models.state_machines import (bind_symbol_sequences,
                                                          make_signal_sm3_hdp,
                                                          make_symbol_sm5)
     from cpecan_signal_tpu.core.band import band_construct
 
-    hdp = make_signal_sm3_hdp(lambda r, m: np.zeros(np.broadcast(r, m).shape),
-                              "ACGTACGTACGTAC", np.zeros((8, 3)))
+    def density(ranks, means):
+        return np.clip(1.0 - np.abs(means - 0.5), 0.0, None) + 0.0 * ranks
+
+    rng = np.random.default_rng(3)
+    grid = np.linspace(0.0, 1.0, 40)
+    density.density_table = (np.tile(density(0, grid), (4098, 1)).astype(np.float32),
+                             0.0, float(grid[1] - grid[0]))
+    events = np.column_stack([rng.uniform(0.0, 1.0, 8), np.full(8, 2.0), np.full(8, 0.01)])
+    hdp = make_signal_sm3_hdp(density, "ACGTACGTACGTAC", events)
+    assert hdp.hdp_pack is not None
     job = SplitJob(hdp, band_construct([], 9, 8, 4), 0, 0, True, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'The hdp package, "
-                                                  "threeStateHdp alignment and HDP EM'"):
-        tba.batch_align_jobs([job], 0.01, device=CPU)
+    (pairs,) = tba.batch_align_jobs([job], 0.01, device=CPU)
+    (want,) = jalign([job], 0.01, interpret=True)
+    assert len(pairs.probs) == len(want.probs) > 0
+    np.testing.assert_allclose(pairs.probs, want.probs, atol=1.2e-3 * 1e7)
     sm = make_symbol_sm5()
     bind_symbol_sequences(sm, "ACGTACGTAC", "ACGTTCGTAC")
     job = SplitJob(sm, band_construct([], 10, 10, 4), 0, 0, True, True)

@@ -49,6 +49,13 @@ against the plain versions first):
     over the small records checked against the CPU, and two card runs of
     one E-step over the chunk required to agree bit for bit.
 
+and the f64 oracle's routes on the card (engine/fb.py, plain PyTorch, no
+kernel of csrc/), each against the kernels' route: realign_record and
+cli/em --engine host on the small records, train_models --engine host and
+threeStateHdp at --assignmentThreshold 0 on the smallest reads, and
+vanilla_align.align_read(device_batch=False); with the oracle's
+microseconds a diagonal.
+
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after.  Each phase prints one line; any failure raises and the
 script exits nonzero.  Without a usable CUDA device it exits nonzero before
@@ -98,6 +105,12 @@ STATS_ATOL, STATS_RTOL = 1e-3, 1e-5   # stats: another summation order
 # E-step on the card against the CPU plain path (sums over buckets and the
 # per-k-mer scatter run in other orders; the scatter uses atomics)
 STEP_RTOL, STEP_ATOL, LIK_RTOL = 1e-4, 1e-5, 1e-5
+# the f64 oracle's E-steps (exact logaddexp) against the kernels' (f32, the
+# reference's cubic logAdd): threeState as tests/test_torch_em.py holds
+# them, the nucleotide E-step as tests/test_torch_discrete.py (likelihood
+# relative)
+HOST_RTOL, HOST_ATOL = 1e-3, 1e-4
+NUC_HOST_RTOL, NUC_HOST_ATOL, NUC_HOST_LIK = 2e-3, 1e-4, 1e-2
 LIK_DROP = 1e-5               # largest relative fall of the EM likelihood
 # whole-path tolerances (tests/test_readpath_random.py:89-96)
 PAIR_TOL, PROB_TOL = 1, 1.2e-3
@@ -163,6 +176,9 @@ HDP_THRESHOLD = 0.01
 # a cell whose posterior lies within the posteriors' atol of the threshold
 # may fall on either side
 HDP_ASSIGN_SHARE = 0.99
+# the vanilla and threeStateHdp E-steps are held to the CPU plain path on the
+# EM_AGREE_READS smallest reads (5 until the f64 oracle's phase joined the run)
+EM_AGREE_READS = 3
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (every input read once, every output written once) at the H100
@@ -1765,7 +1781,7 @@ def phase_train_machine(tmp, reads, ref, model, fk, machine: str, extra) -> dict
 
 def phase_em_machine_agreement(small, ref_seq, model, device, machine: str,
                                nhdp_paths=None) -> None:
-    """One E-step of ``machine`` over the jobs of the 5 smallest reads, both
+    """One E-step of ``machine`` over the jobs of the ``small`` reads, both
     strands: the card's kernels against the CPU plain path (tallies rtol
     1e-4 + atol 1e-5, likelihood 1e-5 relative; threeStateHdp: at least
     HDP_ASSIGN_SHARE of the assignments shared), and two card runs equal bit
@@ -1833,6 +1849,161 @@ def phase_em_machine_agreement(small, ref_seq, model, device, machine: str,
              if hdp else "") + f"; two card runs bit-identical {same}", flush=True)
     if not same:
         raise AssertionError(f"{machine}: two card E-steps differ")
+
+
+def oracle_us_per_diagonal(job, device) -> tuple[int, int, float, float]:
+    """(diagonals, band width, forward and backward microseconds a diagonal)
+    of the f64 oracle (engine/fb.py) on one split job on the card, the host
+    clock around each pass ending in a synchronize."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine import fb
+
+    plan, inp = fb.prepare_inputs(job.sm, job.band, ragged_left=job.ragged_left,
+                                  ragged_right=job.ragged_right, device=device)
+    D, W = inp.valid.shape
+    out = []
+    for fn in (fb.forward, fb.backward):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(plan, inp)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / D * 1e6)
+    return D, W, out[0], out[1]
+
+
+def phase_host_f64(tmp, nuc, ref, ref_seq, model, small, nhdp_paths, device, card) -> None:
+    """The routes of the f64 oracle on the card (engine/fb.py; no kernel of
+    csrc/): realign_record on the two 1 kb records against the batched kernel
+    route (each record's pairs within the pair tolerance, and its CIGAR);
+    one cli/em --engine host iteration on them against the kernel E-step
+    (its model within tests/test_torch_discrete.py's f64 tolerances);
+    train_models --engine host
+    (threeState, one iteration) on the 2 smallest reads against the device
+    E-step (test_torch_em's f64 tolerances, rtol 1e-3 + atol 1e-4), and
+    threeStateHdp at --assignmentThreshold 0 (the oracle's route: every
+    cell an assignment) on the smallest read against its E-step on the CPU
+    (rtol 1e-9, the same assignments); align_read(device_batch=False) on those reads against the
+    batched route; and the oracle's microseconds a diagonal, threeState and
+    fiveState."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch.cli import em, realign, train_models
+    from cpecan_signal_tpu_torch.cli.vanilla_align import align_read, guide_alignment
+    from cpecan_signal_tpu_torch.engine.batch_align import assemble_pairs, batch_align_jobs
+    from cpecan_signal_tpu_torch.hdp.nanopore import deserialize_nhdp
+    from cpecan_signal_tpu_torch.io.npread import load_npread
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams, cli_defaults
+    from cpecan_signal_tpu_torch.models.pore_model import load_pore_model
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    params = AlignmentParams()
+    # realign_record against the batched kernel route, record by record
+    heads, spans, jobs = realign.record_jobs(nuc["small"], nuc["seqs"], params, None)
+    frags = batch_align_jobs(jobs, params.threshold, device=device)
+    t0 = time.perf_counter()
+    worst, same = [], []
+    for rec, (sx, sy, aall), span in zip(nuc["small"], heads, spans):
+        _x, _y, _a, anchors, make_sm = realign.stage_record_head(rec, nuc["seqs"], params, None)
+        host = realign.align_sequence_pair(make_sm, sx, sy, anchors, params, ragged_left=True,
+                                           ragged_right=True, device=device)
+        worst.append(pairs_agree(host, assemble_pairs(frags[span])))
+        lines = [r.to_line() for r in realign.realign_record(rec, nuc["seqs"], params,
+                                                             device=device)]
+        want = [r.to_line() for r in realign.finish_record(rec, assemble_pairs(frags[span]),
+                                                           sx, sy, aall, params)]
+        same.append(lines == want)
+    t_realign = time.perf_counter() - t0
+    miss, drift = max(m for m, _d in worst), max(d for _m, d in worst)
+    # one cli/em iteration, --engine host against the kernel E-step
+    cig = os.path.join(tmp, "small.cig")
+    with open(cig, "w") as fh:
+        fh.write("".join(r.to_line() + "\n" for r in nuc["small"]))
+    t0 = time.perf_counter()
+    models = {eng: em.expectation_maximisation(
+        cig, [nuc["fasta"]], os.path.join(tmp, f"small_{eng}.hmm"), iterations=1, trials=1,
+        set_jukes_cantor_divergence=NUC_JC_START, engine=eng, device=device,
+        log=lambda m: None) for eng in ("host", "pallas")}
+    t_em = time.perf_counter() - t0
+    h, k = models["host"], models["pallas"]
+    em_ok = (np.allclose(h.transitions, k.transitions, rtol=NUC_HOST_RTOL, atol=NUC_HOST_ATOL)
+             and np.allclose(h.emissions, k.emissions, rtol=NUC_HOST_RTOL, atol=NUC_HOST_ATOL)
+             and abs(h.likelihood - k.likelihood) <= NUC_HOST_LIK * abs(k.likelihood))
+    # train_models --engine host, and threeStateHdp at threshold 0
+    reads2 = small[:2]
+    quiet = dict(log=lambda *a: None, device=device)
+    t0 = time.perf_counter()
+    runs = {eng: train_models.train(ref, reads2, model, model, iterations=1, engine=eng,
+                                    out_dir=tmp, **quiet) for eng in ("host", "pallas")}
+    t_train = time.perf_counter() - t0
+    th, tk = runs["host"], runs["pallas"]
+    train_ok = (np.allclose(th["likelihoods"], tk["likelihoods"], rtol=HOST_RTOL) and all(
+        np.allclose(th["accumulators"][s].kmer_gap, tk["accumulators"][s].kmer_gap,
+                    rtol=HOST_RTOL, atol=HOST_ATOL)
+        and np.allclose(th["accumulators"][s].transitions, tk["accumulators"][s].transitions,
+                        rtol=HOST_RTOL, atol=HOST_ATOL) for s in "tc"))
+    hdp_dir = os.path.join(tmp, "train_hdp0")
+    os.makedirs(hdp_dir)
+    t0 = time.perf_counter()
+    hdp0 = train_models.train(
+        ref, reads2[:1], model, model, iterations=1, sm_type="threeStateHdp",
+        assignment_threshold=0.0, template_hdp=nhdp_paths[0], complement_hdp=nhdp_paths[1],
+        gibbs=dict(num_samples=5, burn_in=20, thinning=2), out_dir=hdp_dir, **quiet)
+    t_hdp = time.perf_counter() - t0
+    prep_params = cli_defaults()
+    preps = [train_models._prepare_read(ref_seq, load_npread(reads2[0]), prep_params,
+                                        descale=True)]
+    hdp_ok = True
+    for s, path in zip("tc", nhdp_paths):
+        cpu_acc = train_models._host_estep(
+            preps, s, "threeStateHdp", dict.fromkeys("tc"), {"transitions": None},
+            prep_params, 0.0,
+            deserialize_nhdp(path).density_logp_fn(), cpu, None, None)
+        cpu_acc.normalize()
+        got = hdp0["accumulators"][s]
+        hdp_ok &= (got.kmer_assignments == cpu_acc.kmer_assignments
+                   and got.event_assignments == cpu_acc.event_assignments
+                   and np.allclose(got.transitions, cpu_acc.transitions, rtol=1e-9)
+                   and abs(got.likelihood - cpu_acc.likelihood) <= 1e-9 * abs(cpu_acc.likelihood))
+    n_assign = [hdp0["accumulators"][s].n_assignments for s in "tc"]
+    # align_read(device_batch=False) against the batched route
+    pore = load_pore_model(model)
+    t0 = time.perf_counter()
+    read_worst = []
+    for path in reads2:
+        npr = load_npread(path)
+        guide = guide_alignment(ref_seq, npr.twoD_read, prep_params.constraint_diagonal_trim)
+        res = [align_read(ref_seq, "ref", npr, pore, pore, prep_params, "threeState",
+                          guide=guide, device_batch=b, device=device) for b in (False, True)]
+        read_worst += [pairs_agree(res[0][s], res[1][s]) for s in "tc"]
+    t_read = time.perf_counter() - t0
+    r_miss, r_drift = max(m for m, _d in read_worst), max(d for _m, d in read_worst)
+    # the oracle's time a diagonal on the card, at f64
+    sizes = [(len(j.sm.sm3_pack[2]), j) for jl in read_jobs(reads2[1:], ref_seq, model,
+                                                             prep_params) for j in jl]
+    d3 = oracle_us_per_diagonal(max(sizes, key=lambda t: t[0])[1], device)
+    d5 = oracle_us_per_diagonal(jobs[0], device)
+    t_all = time.perf_counter() - t_phase
+    print(f"host f64: realign_record on {len(nuc['small'])} records vs the batched kernel "
+          f"route ({t_realign:.2f} s): max pairs differing {miss} (tol {PAIR_TOL}), max "
+          f"posterior drift {drift:.3g} (tol {PROB_TOL}), CIGARs equal {same}; cli/em "
+          f"--engine host vs pallas, one iteration ({t_em:.2f} s): agree {em_ok} "
+          f"(likelihood {h.likelihood:.4f} / {k.likelihood:.4f}); train_models --engine host "
+          f"vs pallas on 2 reads ({t_train:.2f} s): agree {train_ok} (likelihood "
+          f"{th['likelihoods']} / {tk['likelihoods']}); threeStateHdp at threshold 0 "
+          f"on 1 read ({t_hdp:.2f} s): {n_assign} assignments, equal to the CPU oracle's "
+          f"{hdp_ok}; "
+          f"align_read(device_batch=False) vs batched on 2 reads ({t_read:.2f} s): max pairs "
+          f"differing {r_miss}, max posterior drift {r_drift:.3g}; f64 oracle us a diagonal "
+          f"(forward, backward): threeState D {d3[0]} W {d3[1]} {d3[2]:.1f}, {d3[3]:.1f}; "
+          f"fiveState D {d5[0]} W {d5[1]} {d5[2]:.1f}, {d5[3]:.1f}; phase {t_all:.1f} s; "
+          f"card {card}", flush=True)
+    if miss > PAIR_TOL or drift > PROB_TOL or r_miss > PAIR_TOL or r_drift > PROB_TOL:
+        raise AssertionError("host f64: the oracle's pairs and the kernels' disagree")
+    if not (em_ok and train_ok and hdp_ok):
+        raise AssertionError("host f64: an oracle E-step disagrees with its reference")
 
 
 def main() -> int:
@@ -1988,9 +2159,9 @@ def main() -> int:
 
         # --- vanilla EM; the HDPs built from the threeState alignment's TSV,
         # threeStateHdp alignment and HDP EM on them; each against the CPU
-        # plain path on the 5 smallest reads
+        # plain path on the smallest reads
         path_launches.append(phase_train_machine(tmp, reads, ref, model, fk, "vanilla", []))
-        phase_em_machine_agreement(small, ref_seq, model, device, "vanilla")
+        phase_em_machine_agreement(small[:EM_AGREE_READS], ref_seq, model, device, "vanilla")
         mark("vanilla training")
         nhdp_paths = phase_build_hdp(tmp, os.path.join(tmp, "out", "posteriors.tsv"), model,
                                      small_tsv, card)
@@ -2000,7 +2171,8 @@ def main() -> int:
             tmp, reads, ref, model, fk, "threeStateHdp",
             ["-v", nhdp_paths[0], "-w", nhdp_paths[1], "--assignmentThreshold",
              str(HDP_THRESHOLD), *HDP_TRAIN_GIBBS]))
-        phase_em_machine_agreement(small, ref_seq, model, device, "threeStateHdp", nhdp_paths)
+        phase_em_machine_agreement(small[:EM_AGREE_READS], ref_seq, model, device,
+                                   "threeStateHdp", nhdp_paths)
         mark("the HDP paths")
 
         # --- the nucleotide paths through their CLIs: realignment, then
@@ -2011,6 +2183,10 @@ def main() -> int:
         path_launches.append(phase_nuc_em(tmp, nuc, fk))
         phase_nuc_em_agreement(tmp, nuc, device)
         launches = {k: sum(pl[k] for pl in path_launches) for k in KERNELS}
+        mark("the nucleotide paths")
+
+        # --- the f64 oracle's routes on the card (no kernel of csrc/)
+        phase_host_f64(tmp, nuc, ref, ref_seq, model, small, nhdp_paths, device, card)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

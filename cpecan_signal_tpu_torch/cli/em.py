@@ -1,5 +1,4 @@
-"""Nucleotide-HMM EM: the cPecanEm equivalent (port of cli/em.py, its
-device E-step :87-107).
+"""Nucleotide-HMM EM: the cPecanEm equivalent (port of cli/em.py).
 
 The reference fans alignment chunks of at most 1 Mb out as jobs running
 cPecanRealign --outputExpectations, with a follow-on merge and normalize
@@ -7,15 +6,17 @@ cPecanRealign --outputExpectations, with a follow-on merge and normalize
 split jobs stacked into device buckets of the symbol lane (em/discrete.py):
 the card carries the fiveState recursions and the EM tallies, per-job
 results are summed in job order and the chunks in chunk order, so the
-accumulator does not depend on bucketing.  Random-restart trials select the
-maximum-likelihood model.  Also the Hmm utilities (Jukes-Cantor start, tied
-emissions, cPecanEm.py:19-105) and the lastz scoring-matrix export
+accumulator does not depend on bucketing.  ``engine="host"`` runs each
+record through the f64 oracle on the same device instead
+(realign.realign_record), and ``update_band`` realigns the records with the
+new model between iterations (the re-banding step), through the oracle too,
+as the JAX CLI does.  Random-restart trials select the maximum-likelihood
+model.  Also the Hmm utilities (Jukes-Cantor start, tied emissions,
+cPecanEm.py:19-105) and the lastz scoring-matrix export
 (makeBlastScoringMatrix, cPecanEm.py:301-359).
 
-Not ported: the host f64 E-step (``engine="host"``) and the re-banding
-between iterations (``update_band``, which realigns with the host engine),
-ROADMAP queue 1, 'Host engines'; several processes (SIGALIGN_COORDINATOR),
-ROADMAP queue 1, 'Several processes'.
+Not ported: several processes (SIGALIGN_COORDINATOR), ROADMAP queue 1,
+'Several processes'.
 """
 
 from __future__ import annotations
@@ -37,13 +38,8 @@ from ..ops import fb_kernels as fk
 from ..utils.device import resolve_device
 
 SYMBOL_NUMBER = 4
-UNPORTED = {
-    "host": "the host f64 E-step engine is ROADMAP queue 1, 'Host engines'",
-    "update_band": "update_band re-bands with the host f64 realign engine, "
-                   "ROADMAP queue 1, 'Host engines'",
-    "coordinator": ("multi-process EM (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
-                    "'Several processes'"),
-}
+COORDINATOR = ("multi-process EM (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
+               "'Several processes'")
 
 
 def set_jukes_cantor(hmm: DiscreteHmm, divergence: float) -> None:
@@ -90,13 +86,26 @@ def _chunk_tallies(chunk, seqs, params, hmm, device, timing=None) -> DiscreteHmm
     return acc
 
 
-def _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing=None) -> DiscreteHmm:
+def _chunk_tallies_host(chunk, seqs, params, hmm, device, timing=None) -> DiscreteHmm:
+    """f64 oracle E-step over one chunk's records, record by record (the
+    cPecanRealign --outputExpectations worker, cPecanRealign.c:584-588)."""
+    from .realign import realign_record
+
+    acc = DiscreteHmm.empty(5, SYMBOL_NUMBER, pseudocount=0.0)
+    for rec in chunk:
+        realign_record(rec, seqs, params, hmm=hmm, expectations=acc, device=device)
+    return acc
+
+
+def _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing=None,
+                      engine: str = "pallas") -> DiscreteHmm:
     """Full E-step: per-chunk tallies, then an in-order sum over the chunks
     (the reference's follow-on merge, cPecanEm.py:182-209)."""
     S, n = 5, SYMBOL_NUMBER
     acc = DiscreteHmm.empty(S, n, pseudocount=1e-12)
+    tallies = _chunk_tallies_host if engine == "host" else _chunk_tallies
     for chunk in trial_chunks:
-        a = _chunk_tallies(chunk, seqs, params, hmm, device, timing)
+        a = tallies(chunk, seqs, params, hmm, device, timing)
         acc.transitions += a.transitions
         acc.emissions += a.emissions
         acc.likelihood += float(a.likelihood)
@@ -112,21 +121,23 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
                              update_band: bool = False, seed: int = 0,
                              engine: str = "auto", device: torch.device | None = None,
                              log=print) -> DiscreteHmm:
-    """Random-restart EM over a CIGAR alignment set on the device E-step;
-    returns (and writes) the maximum-likelihood model
-    (expectationMaximisation and ...Trials, cPecanEm.py:107-242).  Each
-    iteration logs its E-step seconds, device buckets and kernel launches,
-    then its likelihood."""
-    from .realign import load_sequences
+    """Random-restart EM over a CIGAR alignment set; returns (and writes) the
+    maximum-likelihood model (expectationMaximisation and ...Trials,
+    cPecanEm.py:107-242).  ``engine``: "pallas" or "auto", the device
+    E-step (the kernels on the card, their plain versions on the CPU);
+    "host", the f64 oracle per record on the same device.  With
+    ``update_band`` the records are realigned with each iteration's model
+    (but the last's) through the oracle, and the next E-step reads the new
+    alignments (calculateAlignments, cPecanEm.py:212-242).  Each iteration
+    logs its E-step seconds, device buckets and kernel launches, then its
+    likelihood."""
+    from .realign import load_sequences, realign_record
 
-    if engine == "host":
-        raise NotImplementedError(UNPORTED["host"])
-    if engine not in ("auto", "pallas"):
+    if engine not in ("auto", "pallas", "host"):
         raise ValueError(f"unknown E-step engine {engine!r}")
-    if update_band:
-        raise NotImplementedError(UNPORTED["update_band"])
     if os.environ.get("SIGALIGN_COORDINATOR") is not None:
-        raise NotImplementedError(UNPORTED["coordinator"])
+        raise NotImplementedError(COORDINATOR)
+    engine = "pallas" if engine == "auto" else engine
     device = resolve_device() if device is None else device
 
     params = params or AlignmentParams()
@@ -134,7 +145,8 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
     with open(alignment_file) as fh:
         records = list(read_cigars(fh))
     chunks = chunk_alignments(records, max_bases_per_chunk)
-    log(f"em - {len(records)} alignments in {len(chunks)} chunks (device {device})")
+    log(f"em - {len(records)} alignments in {len(chunks)} chunks (engine {engine}, "
+        f"device {device})")
 
     rng = np.random.default_rng(seed)
     best: DiscreteHmm | None = None
@@ -144,11 +156,12 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
         if set_jukes_cantor_divergence is not None:
             set_jukes_cantor(hmm, set_jukes_cantor_divergence)
         running = []
+        trial_records, trial_chunks = records, chunks
         for it in range(iterations):
             timing: dict = {}
             launches = dict(fk.LAUNCHES)
             t0 = time.perf_counter()
-            acc = _estep_all_chunks(chunks, seqs, params, hmm, device, timing)
+            acc = _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing, engine)
             t_step = time.perf_counter() - t0
             launched = {k: v - launches[k] for k, v in fk.LAUNCHES.items() if v > launches[k]}
             acc.normalize()
@@ -159,6 +172,16 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
                 f"{timing.get('buckets', 0)} buckets, launches {launched}, "
                 f"likelihood {acc.likelihood:.2f}")
             hmm = acc
+            if update_band and it < iterations - 1:
+                # re-banding (calculateAlignments, cPecanEm.py:212-242): the
+                # next E-step's guide alignments track the improving model
+                new_records = []
+                for rec in trial_records:
+                    new_records.extend(realign_record(rec, seqs, params, hmm=hmm,
+                                                      device=device) or ())
+                if new_records:
+                    trial_records = new_records
+                    trial_chunks = chunk_alignments(trial_records, max_bases_per_chunk)
         hmm.running_likelihoods = running
         if best is None or hmm.likelihood > best.likelihood:
             best = hmm
@@ -225,8 +248,8 @@ def main(argv=None):
     ap.add_argument("--blastScoringMatrixFile", default=None)
     ap.add_argument("--engine", choices=("auto", "host", "pallas"), default="auto",
                     help="E-step engine: 'pallas' = each chunk's records batched on "
-                         "the device (the name is the JAX CLI's), 'host' = f64 scan "
-                         "per record (not ported), 'auto' = pallas")
+                         "the device (the name is the JAX CLI's), 'host' = the f64 "
+                         "oracle per record on the same device, 'auto' = pallas")
     args = ap.parse_args(argv)
 
     hmm = expectation_maximisation(

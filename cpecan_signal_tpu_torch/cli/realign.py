@@ -1,5 +1,5 @@
 """Nucleotide realigner: the cPecanRealign equivalent (port of
-cli/realign.py, its device route :255-290, :342-365).
+cli/realign.py).
 
 Reads exonerate CIGARs on stdin and fasta sequences, realigns every record
 with the 5-state pair HMM using the input alignment as anchors, and writes
@@ -8,8 +8,10 @@ jobs go through the symbol lane on the card in one batch
 (engine/batch_align), then each record's AMAP reweighting, ordered-pair
 filter and CIGAR conversion run on the host.  ``--outputExpectations``
 writes the records' fiveState EM tallies instead (em/discrete.py), the
-nucleotide-EM worker path.  The host f64 route of the JAX CLI (``--engine
-host``, ``--matchGamma``) is not ported.
+nucleotide-EM worker path.  ``--engine host`` runs each record through the
+f64 oracle on the same device instead (``realign_record``,
+engine/align.align_sequence_pair and em/expectation_driver), as the JAX
+CLI's host route does.
 """
 
 from __future__ import annotations
@@ -24,15 +26,13 @@ import torch
 from ..core import amap
 from ..core.anchors import cigar_to_anchor_pairs, filter_to_remove_overlap
 from ..em.accumulators import DiscreteHmm
+from ..em.expectation_driver import discrete_expectations
+from ..engine.align import align_sequence_pair
 from ..io.cigar import CigarRecord, read_cigars
 from ..io.fasta import read_fasta, reverse_complement
 from ..models.params import AlignmentParams
 from ..models.state_machines import bind_symbol_sequences, make_symbol_sm5
 from ..utils.device import resolve_device
-
-HOST_ENGINE = ("the host f64 realign engine (realign_record, --engine host, "
-               "--matchGamma) is ROADMAP queue 1, 'Host engines'")
-
 
 def load_sequences(paths: list[str]) -> dict[str, str]:
     seqs: dict[str, str] = {}
@@ -237,10 +237,30 @@ def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
     return [out]
 
 
-def realign_record(*_args, **_kwargs):
-    """One record through the host f64 engine: not ported (ROADMAP queue 1,
-    'Host engines'); the port realigns through ``realign_records_batched``."""
-    raise NotImplementedError(HOST_ENGINE)
+def realign_record(rec: CigarRecord, seqs: dict[str, str],
+                   params: AlignmentParams, hmm: DiscreteHmm | None = None,
+                   match_gamma: float = 0.0, rescore: str | None = None,
+                   rescore_original: bool = False,
+                   split_indels_longer_than: int = -1,
+                   expectations: DiscreteHmm | None = None, *,
+                   device: torch.device | None = None) -> list[CigarRecord] | None:
+    """One CIGAR record through the f64 oracle on ``device`` (default: the
+    resolved device) (the cPecanRealign.c:556-645 per-record loop): head ->
+    banded FB (or, with ``expectations``, the E-step, whose tallies are
+    added to it) -> output tail.  ``match_gamma`` is accepted as the JAX
+    CLI accepts it, and read by neither."""
+    device = resolve_device() if device is None else device
+    sub_x, sub_y, anchors_all, anchors, make_sm = stage_record_head(rec, seqs, params, hmm)
+    if expectations is not None:
+        expectations.add(discrete_expectations(make_sm, sub_x, sub_y, anchors, params,
+                                               ragged_left=True, ragged_right=True,
+                                               device=device))
+        return None
+    aligned = align_sequence_pair(make_sm, sub_x, sub_y, anchors, params, ragged_left=True,
+                                  ragged_right=True, device=device)
+    return finish_record(rec, aligned, sub_x, sub_y, anchors_all, params,
+                         rescore=rescore, rescore_original=rescore_original,
+                         split_indels_longer_than=split_indels_longer_than)
 
 
 def record_jobs(records: list[CigarRecord], seqs: dict[str, str],
@@ -314,8 +334,7 @@ def main(argv=None):
     ap.add_argument("--loadHmm", default=None)
     ap.add_argument("--outputExpectations", default=None)
     ap.add_argument("--gapGamma", type=float, default=0.5)
-    ap.add_argument("--matchGamma", type=float, default=0.0,
-                    help="read by the host engine only (not ported)")
+    ap.add_argument("--matchGamma", type=float, default=0.0)
     ap.add_argument("--diagonalExpansion", type=int, default=20)
     ap.add_argument("--constraintDiagonalTrim", type=int, default=14)
     ap.add_argument("--splitMatrixBiggerThanThis", type=int, default=3000)
@@ -327,11 +346,9 @@ def main(argv=None):
     ap.add_argument("--rescoreByPosteriorProbIgnoringGaps", action="store_true")
     ap.add_argument("--engine", choices=("auto", "host", "pallas"), default="auto",
                     help="DP engine: 'pallas' = all records' split jobs batched on "
-                         "the device (the name is the JAX CLI's), 'host' = f64 scan "
-                         "per record (not ported), 'auto' = pallas")
+                         "the device (the name is the JAX CLI's), 'host' = the f64 "
+                         "oracle per record on the same device, 'auto' = pallas")
     args = ap.parse_args(argv)
-    if args.engine == "host" or args.matchGamma != ap.get_default("matchGamma"):
-        raise NotImplementedError(HOST_ENGINE)
     device = resolve_device()
 
     params = AlignmentParams(
@@ -354,7 +371,20 @@ def main(argv=None):
     records = list(read_cigars(sys.stdin))
     timing: dict = {}
     t0 = time.perf_counter()
-    if args.outputExpectations:
+    if args.engine == "host":
+        expectations = (DiscreteHmm.empty(pseudocount=1e-12) if args.outputExpectations
+                        else None)
+        for rec in records:
+            out = realign_record(rec, seqs, params, hmm=hmm, match_gamma=args.matchGamma,
+                                 rescore=rescore,
+                                 rescore_original=args.rescoreOriginalAlignment,
+                                 split_indels_longer_than=args.splitIndelsLongerThanThis,
+                                 expectations=expectations, device=device)
+            for r in out or ():
+                print(r.to_line())
+        if expectations is not None:
+            expectations.write(args.outputExpectations)
+    elif args.outputExpectations:
         expectations = DiscreteHmm.empty(pseudocount=1e-12)
         record_expectations(records, seqs, params, hmm, expectations, device=device,
                             timing=timing)

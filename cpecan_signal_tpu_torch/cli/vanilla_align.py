@@ -1,9 +1,10 @@
 """Signal alignment of one read + CLI: the vanillaAlign equivalent (port of
-cli/vanilla_align.py:34-335, 337-433).
+cli/vanilla_align.py).
 
 Given a reference sequence, an npRead and pore models, aligns the template
 and complement event sequences to the reference with anchor banding on the
-device-batched path and writes the 15-column posterior TSV
+device-batched path (or, with ``align_read(device_batch=False)``, strand by
+strand through the f64 oracle) and writes the 15-column posterior TSV
 (writePosteriorProbs, vanillaAlign.c:26-96).  The machine is vanilla by
 default, threeState (-s), fourState (-f), echelon (-e) or threeStateHdp
 (--threeStateHdp, with NanoporeHDPs -v / -w); trained models (-y / -z,
@@ -24,7 +25,7 @@ from ..constants import KMER_LENGTH, MODEL_PARAMS, PAIR_ALIGNMENT_PROB_1
 from ..core.anchors import (cigar_to_anchor_pairs, filter_to_remove_overlap,
                              remap_anchor_pairs_with_offset)
 from ..core.kmers import kmer_rank
-from ..engine.align import AlignedPairs, collect_split_jobs
+from ..engine.align import AlignedPairs, align_events_to_target, collect_split_jobs
 from ..em.accumulators import load_signal_hmm, signal_sm_params
 from ..engine.batch_align import assemble_pairs, batch_align_jobs
 from ..hdp.nanopore import deserialize_nhdp
@@ -252,6 +253,7 @@ def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
         })
     results["forward"] = forward
     results["strand_ctx"] = strand_ctx
+    results["sm_type"] = sm_type
     return results
 
 
@@ -264,8 +266,17 @@ def strand_jobs(ctx: dict, params: AlignmentParams):
                               ragged_right=True)
 
 
-def compute_pairs(prep: dict, params: AlignmentParams, *, device) -> dict:
-    """Phase 2 of a read: both strands' split jobs in one device batch."""
+def compute_pairs(prep: dict, params: AlignmentParams, *, device,
+                  device_batch: bool = True) -> dict:
+    """Phase 2 of a read: both strands' split jobs in one device batch, or
+    (``device_batch=False``) each strand through the f64 oracle on
+    ``device`` (echelon with its per-state posteriors)."""
+    if not device_batch:
+        empty = AlignedPairs(*(np.zeros(0, dtype=np.int64),) * 3)
+        return {ctx["strand"]: (empty if ctx["make_sm"] is None else align_events_to_target(
+                    ctx["make_sm"], ctx["target"], ctx["events"], ctx["anchors"], params,
+                    device=device, multi_match=prep["sm_type"] == "echelon"))
+                for ctx in prep["strand_ctx"]}
     all_jobs, owners = [], []
     for ctx in prep["strand_ctx"]:
         jobs = strand_jobs(ctx, params)
@@ -274,6 +285,26 @@ def compute_pairs(prep: dict, params: AlignmentParams, *, device) -> dict:
     frags = batch_align_jobs(all_jobs, params.threshold, device=device) if all_jobs else []
     return {s: assemble_pairs([f for f, o in zip(frags, owners) if o == s])
             for s in ("t", "c")}
+
+
+def align_read(ref_seq: str, contig: str, npread: NanoporeRead, template_model: PoreModel,
+               complement_model: PoreModel, params: AlignmentParams,
+               sm_type: str = "vanilla", guide: CigarRecord | None = None,
+               substitute: str | None = None, read_label: str = "read", out_fh=None,
+               trained: dict | None = None, hdp_density: dict | None = None, *,
+               device_batch: bool = True, device=None) -> dict:
+    """Full two-strand signal alignment of one read (vanillaAlign.c:361-805):
+    prepare_read, compute_pairs (``device_batch``), finish_read, on
+    ``device`` (default: the resolved device)."""
+    device = resolve_device() if device is None else device
+    prep = prepare_read(ref_seq, npread, params, sm_type=sm_type, guide=guide,
+                        substitute=substitute, template_model=template_model,
+                        complement_model=complement_model, trained=trained,
+                        hdp_density=hdp_density)
+    if prep["status"] != "ok":
+        return prep
+    pairs = compute_pairs(prep, params, device=device, device_batch=device_batch)
+    return finish_read(prep, pairs, out_fh, read_label, contig)
 
 
 def finish_read(prep: dict, pairs_by_strand: dict, out_fh, read_label: str,

@@ -27,36 +27,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.anchors import anchors_in_window, get_split_points
-from ..core.band import band_construct
 from ..core.window import smooth_band
 from ..engine import pipeline as pp
 from ..engine import readpath
-from ..engine.align import AlignedPairs, SplitJob
-from ..models.params import AlignmentParams
+from ..engine.align import AlignedPairs, SplitJob, collect_symbol_split_jobs  # noqa: F401
 from ..ops import fb_kernels as fk
 
 N_SYM = 4
-
-
-def collect_symbol_split_jobs(make_sm, seq_x: str, seq_y: str, anchors: np.ndarray,
-                              params: AlignmentParams, *, ragged_left: bool,
-                              ragged_right: bool) -> list[SplitJob]:
-    """Split a nucleotide-pair problem (raw sequence lengths, no k-mer
-    shortening) into SplitJobs: the symbol analogue of
-    engine/align.collect_split_jobs."""
-    lX, lY = len(seq_x), len(seq_y)
-    anchors = np.asarray(anchors, dtype=np.int64).reshape(-1, 2)
-    splits = get_split_points(anchors, lX, lY, params.split_matrix_bigger_than_this,
-                              ragged_left, ragged_right,
-                              max_gap_min_dim=params.max_gap_min_dim)
-    jobs = []
-    for i, (x1, y1, x2, y2) in enumerate(splits):
-        sub_anchors = anchors_in_window(anchors, x1, y1, x2, y2)
-        band = band_construct(sub_anchors, x2 - x1, y2 - y1, params.diagonal_expansion)
-        jobs.append(SplitJob(make_sm(seq_x[x1:x2], seq_y[y1:y2]), band, x1, y1,
-                             ragged_left or i > 0, ragged_right or i < len(splits) - 1))
-    return jobs
 
 
 def _to_state_pgroups(plan) -> tuple[tuple[int, ...], ...]:

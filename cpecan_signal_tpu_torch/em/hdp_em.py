@@ -32,17 +32,19 @@ from ..core.kmers import rank_to_kmer
 from ..core.window import smooth_band
 from ..engine import pipeline as pp
 from ..engine import readpath
+from ..engine.align import split_windows
 from ..engine.plan import EnginePlan, _build_plan
 from ..models.state_machines import (MATCH, SM3_NANOPORE_TRANSITIONS, SRC_MIDDLE,
                                      make_signal_sm3_hdp)
 from ..ops import fb_kernels as fk
-from .sm3_em import MAX_BUCKET, EmJob, _EmBudget, _split_loop, stream
+from .sm3_em import MAX_BUCKET, EmJob, _EmBudget, stream
 
-# the JAX package sends a zero threshold to its host f64 engine: at 0 every
-# cell, masked ones included (posterior exactly 0.0), would pass the >= test
-THRESHOLD_ITEM = ("an assignment threshold of 0 needs the host f64 engine: ROADMAP "
-                  "queue 1, 'Host engines' (give --assignmentThreshold > 0; the "
-                  "reference's default is 0.01)")
+# at a threshold of 0 every cell, masked ones included (posterior exactly
+# 0.0), passes the >= test: the JAX package sends it to its host f64 engine,
+# and so does the port (train_models routes it to the oracle's E-step)
+THRESHOLD_ITEM = ("an assignment threshold of 0 runs on the f64 oracle's E-step "
+                  "(train_models --engine host, the route --engine auto takes at 0), "
+                  "not on the device buckets")
 
 
 def _zero_density(ranks, means):
@@ -96,7 +98,7 @@ def collect_hdp_em_jobs(reads: list[dict], params, strand: str) -> list[EmJob]:
         if len(events) == 0:
             continue
         lX = len(target) - KMER_LENGTH + 1
-        for (x1, y1, x2, y2), band, rl, rr in _split_loop(
+        for (x1, y1, x2, y2), band, rl, rr in split_windows(
                 lX, len(events), anchors, params, True, True):
             jobs.append(EmJob(None, target[x1:x2 + KMER_LENGTH - 1], events[y1:y2],
                               band, rl, rr))
@@ -112,7 +114,7 @@ def build_hdp_em_buckets(jobs: list[EmJob], *, device: torch.device,
     the device at every step.  K = min(Dp W, 4 Dp + 512) assignment slots a
     problem and channel, or ``max_assignments``."""
     if threshold <= 0.0:
-        raise NotImplementedError(THRESHOLD_ITEM)
+        raise ValueError(THRESHOLD_ITEM)
     if budget is None:
         budget = _EmBudget(device)
     wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
@@ -200,7 +202,7 @@ def hdp_em_step(buckets: list[HdpEmBucket], nhdp, transitions: dict | None,
     if not buckets:
         return np.zeros((3, 3)), 0.0, [], []
     if threshold <= 0.0:
-        raise NotImplementedError(THRESHOLD_ITEM)
+        raise ValueError(THRESHOLD_ITEM)
     table = nhdp.density_table()
     grid = nhdp.hdp.grid
     g0, dg = float(grid[0]), float(grid[1] - grid[0]) or 1.0

@@ -31,10 +31,9 @@ import numpy as np
 import torch
 
 from ..constants import KMER_LENGTH, NUM_OF_KMERS
-from ..core.anchors import anchors_in_window, get_split_points
-from ..core.band import band_construct
 from ..core.window import smooth_band
 from ..engine import pipeline as pp
+from ..engine.align import split_windows
 from ..engine.plan import EnginePlan, _build_plan
 from ..models.params import AlignmentParams
 from ..models.pore_model import PoreModel, scale_model
@@ -44,22 +43,6 @@ from ..models.state_machines import (LOG_TENTH, SM3_NANOPORE_TRANSITIONS,
 MAX_BUCKET = 64  # problems per device batch (bounds host packing memory)
 BUDGET_ENV = "CPECAN_EM_HBM_BUDGET"   # bytes of buckets kept on the card
 BUDGET_FREE_SHARE = 0.5   # default budget: this share of the card's free memory
-
-
-def _split_loop(target_len_dp, events_len, anchors, params, ragged_left, ragged_right):
-    """Split windows of one strand with their bands and ragged flags (copy of
-    em/expectation_driver._split_loop)."""
-    anchors = np.asarray(anchors, dtype=np.int64).reshape(-1, 2)
-    splits = get_split_points(anchors, target_len_dp, events_len,
-                              params.split_matrix_bigger_than_this,
-                              ragged_left, ragged_right,
-                              max_gap_min_dim=params.max_gap_min_dim)
-    for i, (x1, y1, x2, y2) in enumerate(splits):
-        sub_anchors = anchors_in_window(anchors, x1, y1, x2, y2)
-        band = band_construct(sub_anchors, x2 - x1, y2 - y1, params.diagonal_expansion)
-        rl = ragged_left or i > 0
-        rr = ragged_right or i < len(splits) - 1
-        yield (x1, y1, x2, y2), band, rl, rr
 
 
 def _nbytes(prob: pp.SM3Problem) -> int:
@@ -142,7 +125,7 @@ def collect_sm3_em_jobs(reads: list[dict], models: dict, params: AlignmentParams
         pore = scale_model(models[strand], sp.scale, sp.shift, sp.var,
                            sp.scale_sd, sp.var_sd)
         lX = len(target) - KMER_LENGTH + 1
-        for (x1, y1, x2, y2), band, rl, rr in _split_loop(
+        for (x1, y1, x2, y2), band, rl, rr in split_windows(
                 lX, len(events), anchors, params, True, True):
             jobs.append(EmJob(pore, target[x1:x2 + KMER_LENGTH - 1],
                               events[y1:y2], band, rl, rr))

@@ -750,3 +750,42 @@ def test_cuda_hdp_slice_matches_cpu(cuda_device, tmp_path):
         common = set(dg) & set(dw)
         assert len(common) >= max(len(dg), len(dw), 1) - 1
         assert all(abs(dg[k] - dw[k]) < 1.2e-3 * 1e7 for k in common)
+
+
+@pytest.mark.parametrize("machine", ["threeState", "fiveState"])
+def test_cuda_f64_oracle_matches_cpu(machine, cuda_device, tmp_path):
+    """The f64 oracle (engine/fb.py) on the card against the same call on the
+    CPU: F, B and totals within 1e-9 (log values), posteriors within 1e-9;
+    and the threeState E-step's tallies within rtol 1e-9."""
+    from cpecan_signal_tpu_torch.engine import expectations, fb
+    from cpecan_signal_tpu_torch.models.state_machines import (bind_symbol_sequences,
+                                                                make_symbol_sm5)
+
+    rng = np.random.default_rng(8)
+    if machine == "threeState":
+        pore = _pore(tmp_path, rng)
+        target, events, band, _wb = _cases(pore, rng, 1, 64)[0]
+        sm = make_signal_sm3(pore, target, events)
+    else:
+        x = "".join(rng.choice(list("ACGT"), 300))
+        y = "".join(c for c in x if rng.random() > 0.03)
+        sm = make_symbol_sm5()
+        bind_symbol_sequences(sm, x, y)
+        band = band_construct(np.zeros((0, 2), dtype=np.int64), len(x), len(y), 20)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        plan, inp = fb.prepare_inputs(sm, band, ragged_left=True, ragged_right=True,
+                                      device=dev)
+        F, B = fb.forward(plan, inp), fb.backward(plan, inp)
+        tot = fb.diagonal_totals(plan, inp, F, B)
+        p, _ = fb.posterior_match_probs(plan, inp, F, B)
+        tallies = (expectations.threestate_expectations(plan, inp, F, B)
+                   if machine == "threeState" else
+                   expectations.discrete_expectations(plan, inp, F, B))
+        out[dev.type] = [t.cpu().numpy() for t in (F, B, tot, p, *tallies)]
+    for g, w in zip(out["cuda"][:4], out["cpu"][:4]):
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(np.isfinite(g), fin)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=0, atol=1e-9)
+    for g, w in zip(out["cuda"][4:], out["cpu"][4:]):
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-300)

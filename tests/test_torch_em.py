@@ -11,7 +11,9 @@ bases a strand, no anchors), packed into EM buckets by each package.
     parameters;
   * (d) a zero device budget (every bucket streamed) against a resident build;
   * (e) the port's train_models CLI against the JAX CLI's host engine on
-    synthetic npReads, and a resume from a checkpoint.
+    synthetic npReads, and a resume from a checkpoint; its host f64 routes
+    (``engine="host"``, ``jobs=2``, threeStateHdp at threshold 0) against
+    the JAX CLI's host engine within rtol 1e-9.
 
 Tolerances.  The plain versions and the JAX kernels do the same f32
 operations, but XLA's CPU compiler contracts multiply-adds into FMAs inside
@@ -234,17 +236,98 @@ def test_train_models_resumes_from_checkpoint(tmp_path):
                                       whole["accumulators"][s].kmer_gap)
 
 
-@pytest.mark.parametrize("what, kwargs", [
-    ("ROADMAP queue 1, 'Host engines'", dict(sm_type="threeStateHdp", template_hdp="t.nhdp",
-                                             complement_hdp="c.nhdp")),
-    ("ROADMAP queue 1, 'Host engines'", dict(engine="host")),
-    ("ROADMAP queue 1, 'Host engines'", dict(jobs=2)),
-])
-def test_train_models_unported_options_raise(what, kwargs, tmp_path):
+def _same_acc(got, want, rtol):
+    """Two strands' accumulators: every tally within ``rtol`` (and 1e-300,
+    for tallies that underflow to denormals in one engine and to 0 in the
+    other; ``rtol`` 0: equal bit for bit), the HDP assignments equal in
+    order."""
+    for s in ("t", "c"):
+        g, w = got[s], want[s]
+        for field in ("transitions", "kmer_gap", "bins"):
+            if hasattr(w, field):
+                if rtol:
+                    np.testing.assert_allclose(getattr(g, field), getattr(w, field), rtol=rtol,
+                                               atol=1e-300)
+                else:
+                    np.testing.assert_array_equal(getattr(g, field), getattr(w, field))
+        assert g.likelihood == pytest.approx(w.likelihood, rel=rtol, abs=0)
+        if hasattr(w, "kmer_assignments"):
+            assert g.kmer_assignments == w.kmer_assignments
+            assert g.event_assignments == w.event_assignments
+
+
+@pytest.mark.parametrize("route", [
+    pytest.param("threeStateHdp-threshold-0", id="ROADMAP queue 1, 'Host engines'-kwargs0"),
+    pytest.param("engine-host", id="ROADMAP queue 1, 'Host engines'-kwargs1"),
+    pytest.param("jobs-2", id="ROADMAP queue 1, 'Host engines'-kwargs2"),
+    pytest.param("engine-host-vanilla", id="engine-host-vanilla")])
+def test_train_models_unported_options_raise(route, tmp_path):
+    """The train_models routes on the f64 oracle give what the JAX CLI's
+    host engine gives (tallies within rtol 1e-9): ``engine="host"``
+    (threeState over 2 iterations, vanilla over 1); ``engine="host",
+    jobs=2`` (2 spawned CPU workers), equal bit for bit to ``jobs=1``;
+    threeStateHdp at assignment threshold 0, which ``engine="auto"`` sends
+    to the oracle as the JAX CLI does, its assignments (every cell) equal
+    to JAX's.  (The name and ids are those of the test these routes
+    replaced, kept so that test records line up.)"""
+    from cpecan_signal_tpu.cli import train_models as jtm
     from cpecan_signal_tpu_torch.cli import train_models as ttm
 
-    with pytest.raises(NotImplementedError, match=what):
-        ttm.train("ref.fa", [], "m", "m", device=CPU, **kwargs)
+    model, ref, reads = _npread_set(tmp_path, n_reads=2, seed=6)
+    paths = [os.path.join(reads, f) for f in sorted(os.listdir(reads))]
+    kw = dict(iterations=2, log=lambda *a: None)
+    if route == "threeStateHdp-threshold-0":
+        from test_torch_hdp_align import _build
+        nhdp = _build(str(tmp_path / "acgt.nhdp"), model)
+        kw.update(iterations=1, sm_type="threeStateHdp", template_hdp=nhdp,
+                  complement_hdp=nhdp, gibbs=dict(num_samples=5, burn_in=10, thinning=2))
+    elif route == "engine-host-vanilla":
+        kw.update(iterations=1, sm_type="vanilla", engine="host")
+    elif route == "engine-host":
+        kw.update(engine="host")
+    port_kw = dict(device=CPU, jobs=1)
+    jax_kw = {}
+    if route == "jobs-2":
+        port_kw.update(jobs=2, engine="host")
+        jax_kw = dict(engine="host")
+    runs = {}
+    for name, mod, extra in (("port", ttm, port_kw), ("jax", jtm, jax_kw)):
+        out = tmp_path / name
+        out.mkdir()
+        runs[name] = mod.train(ref, paths, model, model, out_dir=str(out), **kw, **extra)
+    got, want = runs["port"], runs["jax"]
+    np.testing.assert_allclose(got["likelihoods"], want["likelihoods"], rtol=1e-9)
+    _same_acc(got["accumulators"], want["accumulators"], 1e-9)
+    if route == "threeStateHdp-threshold-0":
+        assert got["jobs"] == {} and got["accumulators"]["t"].n_assignments > 1000
+    if route == "jobs-2":
+        out = tmp_path / "one"
+        out.mkdir()
+        one = ttm.train(ref, paths, model, model, out_dir=str(out), device=CPU,
+                        engine="host", **kw)
+        assert got["likelihoods"] == one["likelihoods"]
+        _same_acc(got["accumulators"], one["accumulators"], 0)
+
+
+@pytest.mark.parametrize("engine, jobs, device, hdp_every_cell, want", [
+    ("auto", 1, "cuda", False, ("pallas", 1)),
+    ("auto", 4, "cuda", False, ("pallas", 1)),
+    ("auto", 4, "cuda", True, ("host", 1)),
+    ("auto", 1, "cuda", True, ("host", 1)),
+    ("auto", 4, "cpu", False, ("host", 4)),
+    ("auto", 1, "cpu", False, ("pallas", 1)),
+    ("host", 4, "cuda", False, ("host", 4)),
+    ("pallas", 4, "cuda", True, ("pallas", 4))])
+def test_train_models_route(engine, jobs, device, hdp_every_cell, want):
+    """``engine="auto"`` keeps the E-step on the card whatever ``jobs`` says
+    (the pool's workers run on the CPU); on the CPU it takes the pool for
+    ``jobs`` > 1, as the JAX CLI does; an explicit engine is kept."""
+    from cpecan_signal_tpu_torch.cli import train_models as ttm
+
+    said = []
+    assert ttm._route(engine, jobs, torch.device(device), hdp_every_cell,
+                      log=said.append) == want
+    assert bool(said) == (engine == "auto" and jobs > 1 and device == "cuda")
 
 
 @pytest.mark.parametrize("flag", [["--templateHdp", "t.hdp"], ["--complementHdp", "c.hdp"],

@@ -17,7 +17,8 @@ JAX package.
     iteration (from the same HDP files) gives the same likelihood (f32
     against f64: rtol 2e-3), transitions and assignments; two iterations
     rebuild both HDPs (the Gibbs chain: tests/test_torch_hdp.py) and write
-    them; a threshold of 0 raises, naming ROADMAP 'Host engines'.
+    them; at a threshold of 0 both CLIs run the f64 engine, whose
+    assignments (every cell) and transitions agree.
 """
 
 import os
@@ -206,8 +207,23 @@ def test_train_models_three_state_hdp_matches_jax_cli(hdp_set, tmp_path, monkeyp
     log = capsys.readouterr().out
     two = [float(v) for v in re.findall(r"iteration \d+: .*likelihood (-?[\d.]+)", log)]
     assert len(two) == 2 and np.isfinite(two).all() and "HDP rebuild" in log
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
-        ttm.main(base[:-8] + GIBBS + ["-i", "1", "-o", str(out)])
+    # at threshold 0 both CLIs take the f64 engine: every cell an assignment
+    zero = base[:-8] + GIBBS + ["-i", "1"]
+    got, want = tmp_path / "port0", tmp_path / "jax0"
+    logs = []
+    for d, mod in ((got, ttm), (want, jtm)):
+        d.mkdir()
+        capsys.readouterr()
+        assert mod.main(zero + ["-o", str(d)]) == 0
+        logs.append(capsys.readouterr().out)
+    assert "f64 oracle E-step on cpu" in logs[0]
+    for name in ("template", "complement"):
+        g = HdpHmm.load(str(got / f"{name}_trained.hmm"))
+        w = HdpHmm.load(str(want / f"{name}_trained.hmm"))
+        assert g.kmer_assignments == w.kmer_assignments
+        assert g.event_assignments == w.event_assignments
+        np.testing.assert_allclose(g.transitions, w.transitions, rtol=1e-9)
+        assert g.n_assignments > 1000
 
 
 def test_train_models_three_state_hdp_resumes_from_checkpoint(hdp_set, tmp_path):

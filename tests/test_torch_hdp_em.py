@@ -19,7 +19,8 @@ tests/test_hdp_pallas.py's random targets and events.
     the f64 engine tests/test_hdp_pallas.py's tolerances;
   * (c) a run whose assignment buffers overflow (max_assignments = 1) is
     re-run job by job on the device and equals an ample-K run bit for bit;
-  * (d) a threshold of 0 raises, naming ROADMAP 'Host engines'.
+  * (d) at a threshold of 0 the device buckets raise, naming the f64
+    oracle's route, whose E-step there equals the JAX host engine's.
 """
 
 from collections import Counter
@@ -198,8 +199,28 @@ def test_hdp_overflow_reruns_on_the_device(nhdps):
     assert tight[1] == ample[1] and tight[2] == ample[2] and tight[3] == ample[3]
 
 
-def test_hdp_threshold_zero_raises():
+def test_hdp_threshold_zero_raises(nhdps):
+    """A threshold of 0 is not for the device buckets (every cell would
+    pass): they raise, naming the route that takes it, the f64 oracle's
+    E-step; there (em/expectation_driver.hdp_expectations) it gives the JAX
+    host engine's transitions (rtol 1e-9) and assignments, every cell's in
+    JAX's order."""
+    from cpecan_signal_tpu_torch.em.expectation_driver import hdp_expectations as thdp
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams as TParams
+    from cpecan_signal_tpu_torch.models.state_machines import make_signal_sm3_hdp as tmake
+
+    jn, tn = nhdps
     params = AlignmentParams()
-    _jj, tj, _cases = _jobs(5, (42,), params)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
+    _jj, tj, cases = _jobs(5, (42,), params)
+    with pytest.raises(ValueError, match="--engine host"):
         tem.build_hdp_em_buckets(tj, device=CPU, threshold=0.0)
+    (target, events, anchors), = cases
+    got = thdp(lambda t, e: tmake(tn.density_logp_fn(), t, e), target, events, anchors,
+               TParams(), 0.0, device=CPU)
+    want = hdp_expectations(lambda t, e: make_signal_sm3_hdp(jn.density_logp_fn(), t, e),
+                            target, events, anchors, params, 0.0)
+    np.testing.assert_allclose(got.transitions, want.transitions, rtol=1e-9)
+    assert got.likelihood == pytest.approx(want.likelihood, rel=1e-9)
+    assert got.kmer_assignments == want.kmer_assignments
+    assert got.event_assignments == want.event_assignments
+    assert got.n_assignments == 3 * sum(j.band.n_diagonals * j.band.max_width for j in tj)

@@ -247,10 +247,37 @@ def _case_hdp_metrics(seed):
             for m in (jm, tm)]
 
 
+def _case_alignments(seed, tmp_path):
+    from cpecan_signal_tpu.analysis import alignments as ja
+    from cpecan_signal_tpu_torch.analysis import alignments as ta
+
+    rng = np.random.default_rng(seed)
+    path = str(tmp_path / "a.tsv")
+    with open(path, "w") as fh:
+        for i in range(80):
+            kmer = "".join(rng.choice(list("ACGT"), 6))
+            fh.write("\t".join(map(str, [
+                "chr", i, kmer, f"read{i % 3}", "tc"[i % 2], i // 2, 60.0 + i % 7, 1.5,
+                0.002 * (i % 9 + 1), kmer, 60.0, 1.5, round(rng.uniform(0, 1), 3),
+                59.0 + i % 5, 59.5])) + "\n")
+    out = []
+    for mod in (ja, ta):
+        t = mod.AlignmentTable.read(path)
+        hist = mod.kmer_event_histograms(t, threshold=0.2)
+        stats = mod.duration_analysis(t)
+        cmp = mod.summarize_alignments(t, t.by_strand("t"))
+        out.append([np.concatenate([hist[k] for k in sorted(hist)]),
+                    np.array(sorted(stats.items())), np.array(sorted(cmp.items())),
+                    np.array([repr(r) for r in mod.process_posteriors(t, 0.3)]),
+                    np.array([repr(r) for r in mod.make_build_alignment(
+                        [(t, None), (t, "E")], threshold=0.1, max_per_kmer=2)])])
+    return out
+
+
 @pytest.mark.parametrize("case", ["make_signal_sm3", "band_construct+smooth_band",
                                   "load_npread", "fast5_to_npread", "sequence_kmer_ranks",
                                   "ContinuousPairHmm.to_sm3_params", "amap",
-                                  "hdp.nanopore", "hdp.metrics"])
+                                  "hdp.nanopore", "hdp.metrics", "analysis.alignments"])
 def test_copied_host_module_matches_jax(case, tmp_path):
     """The port's copy of a host module gives exactly what the JAX package's
     module gives, on the same numpy-seeded input."""
@@ -265,6 +292,7 @@ def test_copied_host_module_matches_jax(case, tmp_path):
         "amap": lambda: _case_amap(seed),
         "hdp.nanopore": lambda: _case_hdp_nanopore(seed),
         "hdp.metrics": lambda: _case_hdp_metrics(seed),
+        "analysis.alignments": lambda: _case_alignments(seed, tmp_path),
     }[case]()
     assert len(want) == len(got)
     for w, g in zip(want, got):
@@ -288,7 +316,7 @@ def test_copies_name_their_source():
             if f"Copied from ``cpecan_signal_tpu/{rel}``" in doc:
                 copies.append(rel)
                 assert os.path.exists(os.path.join(jax_root, rel)), rel
-    assert len(copies) == 20, copies
+    assert len(copies) == 21, copies
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):

@@ -15,15 +15,18 @@ one record of each set on the reverse strand of its second sequence.
     written from it equal; and EM's guarantee that the likelihood does not fall;
   * the Hmm utilities (chunking, Jukes-Cantor start, tied emissions) equal
     the JAX CLI's;
-  * (g) what is not ported raises NotImplementedError naming its ROADMAP
-    item: the host engine (``--engine host``, ``--matchGamma``,
-    ``realign_record``), ``update_band`` and SIGALIGN_COORDINATOR.
+  * (g) the host f64 routes (``--engine host``, ``--matchGamma``,
+    ``realign_record``, cli/em's ``engine="host"`` and ``update_band``)
+    against the JAX CLIs' host routes: CIGARs equal, tallies and models
+    within rtol 1e-9; SIGALIGN_COORDINATOR still raises NotImplementedError
+    naming its ROADMAP item.
 """
 
 import io
 
 import numpy as np
 import pytest
+import torch
 
 from cpecan_signal_tpu.cli import em as jem
 from cpecan_signal_tpu.cli import realign as jrealign
@@ -39,6 +42,8 @@ from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
 STEP_RTOL, STEP_ATOL, LIK_RTOL = 1e-4, 1e-5, 1e-5
 EM_LIK_RTOL, EM_ATOL = 1e-4, 1e-4
+HOST_RTOL = 1e-9   # the f64 oracle against the JAX host engine
+CPU = torch.device("cpu")
 
 
 def write_records(tmp_path, n, n_bases, seed, reverse=(1,)):
@@ -163,28 +168,99 @@ def test_hmm_utilities_match_jax():
     np.testing.assert_array_equal(a.emissions, b.emissions)
 
 
-def test_unported_routes_raise(tmp_path, monkeypatch, cpu_platform):
-    """(g) The host engine, re-banding and several processes raise
-    NotImplementedError naming their ROADMAP item; nothing runs in their
-    place."""
-    fasta, cigars = write_records(tmp_path, 1, 40, seed=1, reverse=())
+def test_unported_routes_raise(tmp_path, monkeypatch, capsys, cpu_platform):
+    """(g) The host f64 routes run and give what the JAX CLI's host routes
+    give: ``--engine host`` CIGARs (with and without ``--matchGamma``, which
+    both accept and neither reads) and its ``--outputExpectations`` tallies
+    within rtol 1e-9, ``realign_record`` alone; several processes
+    (SIGALIGN_COORDINATOR) still raise, naming their ROADMAP item."""
+    fasta, cigars = write_records(tmp_path, 2, 60, seed=1, reverse=(1,))
+    for extra in (["--engine", "host"], ["--engine", "host", "--matchGamma", "0.5"]):
+        argv = [fasta, "--constraintDiagonalTrim", "2", *extra]
+        got = _run(trealign.main, argv, cigars, monkeypatch, capsys).splitlines()
+        want = _run(jrealign.main, argv, cigars, monkeypatch, capsys).splitlines()
+        assert len(got) == 2 and got == want
+    exp = {}
+    for name, main in (("port", trealign.main), ("jax", jrealign.main)):
+        path = str(tmp_path / f"{name}.exp")
+        _run(main, [fasta, "--engine", "host", "--outputExpectations", path], cigars,
+             monkeypatch, capsys)
+        exp[name] = DiscreteHmm.load(path)
+    np.testing.assert_allclose(exp["port"].transitions, exp["jax"].transitions, rtol=HOST_RTOL)
+    np.testing.assert_allclose(exp["port"].emissions, exp["jax"].emissions, rtol=HOST_RTOL)
+    assert exp["port"].likelihood == pytest.approx(exp["jax"].likelihood, rel=HOST_RTOL)
+    from cpecan_signal_tpu.models.params import AlignmentParams as JParams
+    seqs = trealign.load_sequences([fasta])
+    rec = parse_cigar_line(cigars.splitlines()[1])
+    got = trealign.realign_record(rec, seqs, AlignmentParams(), device=CPU)
+    want = jrealign.realign_record(rec, seqs, JParams())
+    assert [r.to_line() for r in got] == [r.to_line() for r in want]
+
     cig = str(tmp_path / "one.cig")
     with open(cig, "w") as fh:
         fh.write(cigars)
-    monkeypatch.setattr("sys.stdin", io.StringIO(cigars))
-    for extra in (["--engine", "host"], ["--matchGamma", "0.5"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
-            trealign.main([fasta, *extra])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
-        trealign.realign_record(None, {}, AlignmentParams())
-    out = str(tmp_path / "m.hmm")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
-        tem.expectation_maximisation(cig, [fasta], out, iterations=1, engine="host")
-    with pytest.raises(NotImplementedError, match="update_band.*ROADMAP queue 1, 'Host engines'"):
-        tem.expectation_maximisation(cig, [fasta], out, iterations=1, update_band=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Host engines'"):
-        tem.main(["--alignments", cig, "--fastas", fasta, "--outputModel", out,
-                  "--engine", "host"])
     monkeypatch.setenv("SIGALIGN_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Several processes'"):
-        tem.expectation_maximisation(cig, [fasta], out, iterations=1)
+        tem.expectation_maximisation(cig, [fasta], str(tmp_path / "m.hmm"), iterations=1)
+
+
+@pytest.mark.parametrize("update_band", [False, True])
+def test_em_host_engine_matches_jax(update_band, tmp_path, cpu_platform):
+    """cli/em with ``engine="host"``: the E-step tallies within rtol 1e-9 of
+    the JAX host E-step on the same model; two iterations (with
+    ``update_band``, the records realigned by the first iteration's model
+    between them, as the JAX CLI does) give the JAX run's likelihoods and
+    model within rtol 1e-9, and the re-banding realigns each record to the
+    JAX CIGARs."""
+    from cpecan_signal_tpu.models.params import AlignmentParams as JParams
+
+    fasta, cigars = write_records(tmp_path, 2, 60, seed=3, reverse=(0,))
+    cig = str(tmp_path / "pairs.cig")
+    with open(cig, "w") as fh:
+        fh.write(cigars)
+    run = dict(iterations=2, update_band=update_band, engine="host",
+               set_jukes_cantor_divergence=0.3)
+    got = tem.expectation_maximisation(cig, [fasta], str(tmp_path / "port.hmm"),
+                                       params=AlignmentParams(), device=CPU,
+                                       log=lambda m: None, **run)
+    want = jem.expectation_maximisation(cig, [fasta], str(tmp_path / "jax.hmm"),
+                                        params=JParams(), log=lambda m: None, **run)
+    np.testing.assert_allclose(got.running_likelihoods, want.running_likelihoods,
+                               rtol=HOST_RTOL)
+    np.testing.assert_allclose(got.transitions, want.transitions, rtol=HOST_RTOL)
+    np.testing.assert_allclose(got.emissions, want.emissions, rtol=HOST_RTOL)
+    seqs = trealign.load_sequences([fasta])
+    records = [parse_cigar_line(line) for line in cigars.splitlines()]
+    if update_band:
+        realigned = [[r.to_line() for r in mod.realign_record(rec, seqs, params, hmm=got,
+                                                               **kw)]
+                     for rec in records
+                     for mod, params, kw in ((trealign, AlignmentParams(), {"device": CPU}),
+                                             (jrealign, JParams(), {}))]
+        assert realigned[0::2] == realigned[1::2]
+    else:
+        a = tem._estep_all_chunks([records], seqs, AlignmentParams(), got, CPU, None, "host")
+        b = jem._estep_all_chunks([records], seqs, JParams(), got, "host", False)
+        np.testing.assert_allclose(a.transitions, b.transitions, rtol=HOST_RTOL)
+        np.testing.assert_allclose(a.emissions, b.emissions, rtol=HOST_RTOL)
+        assert a.likelihood == pytest.approx(b.likelihood, rel=HOST_RTOL)
+
+
+def test_em_main_host_engine_matches_jax(tmp_path, cpu_platform):
+    """cli/em's main with ``--engine host``: the written model and the lastz
+    scoring matrix equal the JAX CLI's."""
+    fasta, cigars = write_records(tmp_path, 2, 50, seed=4, reverse=())
+    cig = str(tmp_path / "pairs.cig")
+    with open(cig, "w") as fh:
+        fh.write(cigars)
+    out = {}
+    for name, main in (("port", tem.main), ("jax", jem.main)):
+        model, matrix = str(tmp_path / f"{name}.hmm"), str(tmp_path / f"{name}.mat")
+        assert main(["--alignments", cig, "--fastas", fasta, "--outputModel", model,
+                     "--iterations", "1", "--trials", "1", "--engine", "host",
+                     "--blastScoringMatrixFile", matrix]) == 0
+        with open(matrix) as fh:
+            out[name] = (DiscreteHmm.load(model), fh.read())
+    np.testing.assert_allclose(out["port"][0].transitions, out["jax"][0].transitions,
+                               rtol=HOST_RTOL)
+    assert out["port"][1] == out["jax"][1]

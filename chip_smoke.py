@@ -8,16 +8,22 @@ PyTorch version on the card (narrow windows, and 1024-lane ones: a
 1024-thread recursion block) at the threeState, vanilla, echelon and
 fiveState plans (the emissions also with offsets off the band, the tile
 kernel's device-memory path), and the stage-4 configurations of the vanilla
-and threeStateHdp E-steps, then drives the port's paths on 50 synthetic
-two-strand reads:
+and threeStateHdp E-steps, and the recursions' per-diagonal offsets (a start
+or end vector moved by -2^16 moves only the totals; offset), then drives the
+port's paths on 50 synthetic two-strand reads:
 
   * alignment: cli/signal_align -s (emissions, forward, stage-3 backward),
     checked against the CPU plain path and timed, and one 50 kb read, whose
-    emissions launch is also checked and timed alone with its bound;
+    emissions launch is also checked and timed alone with its bound; that
+    read's job and a 100 kb fiveState record held against the f64 oracle
+    (drift: at most 1 pair missing or extra and 1.2e-3 posterior drift);
   * training: cli/train_models, threeState, 3 EM iterations on the card
     (emissions, forward, stage-4 backward), the likelihood required not to
     fall once the first M-step has normalized the model, and one E-step
     checked against the CPU plain path;
+  * several processes: 2 ranks on the one card over gloo (distributed):
+    signal_align -s on 10 reads and one train_models iteration, against one
+    process;
   * the generic window machines: cli/signal_align with no machine flag
     (vanilla), --fourState and --echelon (forward, stage-3 backward; echelon
     with its per-state posteriors), each checked against the CPU plain path;
@@ -88,8 +94,9 @@ REPLACES = {
 # the generic window machines through the CLI: signal_align flags, the
 # backward mode each launches, and how many of the smallest reads its
 # card-vs-CPU check takes (the CPU plain echelon path takes ~50 ms a
-# diagonal: the smallest read's two jobs of ~860 diagonals, about a minute)
-MACHINES = {"vanilla": ([], "backward", 5), "fourState": (["--fourState"], "backward", 5),
+# diagonal: the smallest read's two jobs of ~860 diagonals, about a minute;
+# vanilla and fourState took 5 until PR 9's phases joined the run)
+MACHINES = {"vanilla": ([], "backward", 3), "fourState": (["--fourState"], "backward", 3),
             "echelon": (["--echelon"], "backward_pstates", 1)}
 # echelon's CLI run takes the first ECHELON_READS reads of the set: a read
 # gives it about 90000 TSV rows, whose writing set the pace of that run
@@ -117,10 +124,11 @@ PAIR_TOL, PROB_TOL = 1, 1.2e-3
 SEED = 20261016
 EM_ITERATIONS = 3
 WIDE_W = 1024   # the widest window: a recursion block of 1024 threads (csrc/fb_sm3.cu)
-# threeState kernel checks against the plain versions (W, Dp), B = 64; the
-# stage-4 backward at every shape but (64, 2048).  The kernels line carries
-# the numbers of LINE_SHAPE (backward_pstates: echelon at W = 128, Dp = 1024)
-KERNEL_SHAPES = ((64, 1024), (128, 1024), (64, 2048), (128, 4096))
+# threeState kernel checks against the plain versions (W, Dp), B = 64, the
+# stage-4 backward at each ((64, 2048) was checked too until PR 9's phases
+# joined the run).  The kernels line carries the numbers of LINE_SHAPE
+# (backward_pstates: echelon at W = 128, Dp = 1024)
+KERNEL_SHAPES = ((64, 1024), (128, 1024), (128, 4096))
 LINE_SHAPE = (128, 4096)
 # the generic plans' kernel checks, B problems each: (W, Dp, against the
 # plain versions); vanilla also at a width and depth of the CLI's windows
@@ -165,11 +173,12 @@ STAGE4_GROUPS = {"vanilla": (((0,), (1,)), None),           # (wgroups, pgroups)
                  "threeStateHdp": (((0, 1, 2),), ((3,), (4,), (5,)))}
 # the HDP phases: the grid and HdpType of build_hdp's defaults (30-90 pA,
 # 1200 points, flat over ACEGOT); the Gibbs chain cut from the reference's
-# 10000 samples, 100000 burn-in sweeps and thinning 100 to 4000 sweeps for
-# the build (both strands in parallel) and 400 for each training
-# iteration's rebuild (of about 1.4 million assignments a strand)
+# 10000 samples, 100000 burn-in sweeps and thinning 100 to 2000 sweeps for
+# the build (both strands in parallel; 4000 until PR 9's phases joined the
+# run) and 400 for each training iteration's rebuild (of about 1.4 million
+# assignments a strand)
 HDP_GRID = (30.0, 90.0, 1200)
-HDP_BUILD_GIBBS = ["--samples", "200", "--burnIn", "2000", "--thinning", "10"]
+HDP_BUILD_GIBBS = ["--samples", "100", "--burnIn", "1000", "--thinning", "10"]
 HDP_TRAIN_GIBBS = ["--samples", "20", "--burnIn", "200", "--thinning", "10"]
 HDP_THRESHOLD = 0.01
 # assignments (k-mer, event) of one E-step shared by the card and the CPU:
@@ -177,8 +186,15 @@ HDP_THRESHOLD = 0.01
 # may fall on either side
 HDP_ASSIGN_SHARE = 0.99
 # the vanilla and threeStateHdp E-steps are held to the CPU plain path on the
-# EM_AGREE_READS smallest reads (5 until the f64 oracle's phase joined the run)
-EM_AGREE_READS = 3
+# EM_AGREE_READS smallest reads (5 until the f64 oracle's phase joined the
+# run, 3 until PR 9's phases did)
+EM_AGREE_READS = 2
+# the offset phase: a boundary vector on the 2^-7 grid moved by -2^16 (exact
+# in f32) must change the kernels' posteriors and tallies by no more than
+# OFFSET_ATOL and move every total by 2^16 to its f32 spacing
+OFFSET_SHIFT, OFFSET_GRID, OFFSET_ATOL = 2.0 ** 16, 2.0 ** -7, 1e-6
+# the distributed phase: ranks on the one card, the reads they share
+DIST_RANKS, DIST_READS = 2, 10
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (every input read once, every output written once) at the H100
@@ -379,18 +395,20 @@ def phase_wide(pore, device, rng, stats) -> None:
     edges = pp.to_device(edge_table(plan), device)
     groups = pp.sm3_wgroups(plan)
     E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     P, T = fk.backward_sm3(*args)
     got = fk.backward_sm3(*args, stages=4, wgroups=groups)
     torch.cuda.synchronize()
     E_ref = fk.emissions_sm3_ref(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F_ref = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    F_ref, offF_ref = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start,
+                                         b.tp_scalar)
     ref = fk.backward_sm3_ref(*args, 4, groups)   # its p, totals are stage 3's
     e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
                   (max_err(a, r) for a, r in zip(got, ref))))
     ok = {"E": bool(((E - E_ref).abs() <= E_RTOL * E_ref.abs()).all()),
-          "F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+          "F": forward_ok(F, offF, F_ref, offF_ref),
           "p": max_err(P, ref[0]) <= P_ATOL and e4["p"] <= P_ATOL,
           "totals": all(bool(torch.allclose(t, ref[1], atol=F_ATOL, rtol=F_RTOL))
                         for t in (T, got[1])),
@@ -407,6 +425,16 @@ def phase_wide(pore, device, rng, stats) -> None:
         raise AssertionError(f"kernel disagrees with its plain version at W={W}: {ok}")
     for k, e in errs.items():
         stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+
+
+def forward_ok(F, offF, F_ref, offF_ref) -> bool:
+    """The forward kernel's (F, offF) against its plain version's: F, stored
+    relative to the offsets, within the F tolerance; the offsets (sums of
+    row maxima) equal."""
+    import torch
+
+    return bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)
+                and torch.equal(offF, offF_ref))
 
 
 def max_err(a, b) -> float:
@@ -558,14 +586,14 @@ def phase_kernels(pore, device, rng) -> dict:
             return fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
 
         def run_b():
-            return fk.backward_sm3(edges, m, E, F, *bargs)
+            return fk.backward_sm3(edges, m, E, F, offF, *bargs)
 
         def run_b4():
-            return fk.backward_sm3(edges, m, E, F, *bargs, stages=4, wgroups=groups)
+            return fk.backward_sm3(edges, m, E, F, offF, *bargs, stages=4, wgroups=groups)
 
         t0 = time.perf_counter()
         E = run_e()
-        F = run_f()
+        F, offF = run_f()
         P, T = run_b()
         em_out = run_b4() if em else ()
         torch.cuda.synchronize()
@@ -577,21 +605,21 @@ def phase_kernels(pore, device, rng) -> dict:
         head = f"kernels W={W} Dp={Dp} B=64: first call {t_first:.3f} s"
         E_ref, e_plain = timed_once(lambda: fk.emissions_sm3_ref(b.x0, b.yr0, b.xarr,
                                                                  b.evr, W, Dp))
-        F_ref, f_plain = timed_once(lambda: fk.forward_sm3_ref(
+        (F_ref, offF_ref), f_plain = timed_once(lambda: fk.forward_sm3_ref(
             edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar))
         (P_ref, T_ref), b_plain = timed_once(lambda: fk.backward_sm3_ref(
-            edges, m, E, F, *bargs))
+            edges, m, E, F, offF, *bargs))
         errs = {"emissions": max_err(E, E_ref), "forward": max_err(F, F_ref),
                 "backward": max(max_err(P, P_ref), max_err(T, T_ref))}
         ok = {"E": bool(((E - E_ref).abs() <= E_RTOL * E_ref.abs()).all()),
-              "F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+              "F": forward_ok(F, offF, F_ref, offF_ref),
               "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL)),
               "p": bool(torch.allclose(P, P_ref, atol=P_ATOL, rtol=0))}
         plain = {"emissions": e_plain, "forward": f_plain, "backward": b_plain}
         line = ""
         if em:
             ref4, plain["backward_em"] = timed_once(lambda: fk.backward_sm3_ref(
-                edges, m, E, F, *bargs, 4, groups))
+                edges, m, E, F, offF, *bargs, 4, groups))
             e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
                           (max_err(a, r) for a, r in zip(em_out, ref4))))
             ok.update({
@@ -622,17 +650,17 @@ def phase_kernels(pore, device, rng) -> dict:
                                               nbytes(dl, edges, b.tp_scalar))
             S = plan.n_states
             moved = {"forward": (ops_per_cell("forward", edges),
-                                 fwd_in + nbytes(b.start, F), cells),
+                                 fwd_in + nbytes(b.start, F, offF), cells),
                      "backward": (ops_per_cell("backward", edges, S),
-                                  bwd_in + nbytes(b.end, P, T), cells),
+                                  bwd_in + nbytes(b.end, offF, P, T), cells),
                      "backward_em": (ops_per_cell("backward_em", edges, S, wgroups=groups),
-                                     bwd_in + nbytes(b.end, *em_out), cells)}
+                                     bwd_in + nbytes(b.end, offF, *em_out), cells)}
             for k in ms:
                 stats[k]["ms"], stats[k]["plain_ms"] = ms[k], plain[k]
                 stats[k]["bound_ms"], stats[k]["bound_by"] = (
                     emissions_bound(b.x0, b.yr0, b.xarr, b.evr, E) if k == "emissions"
                     else bound(*moved[k]))
-        del E, F, P, T, E_ref, F_ref, P_ref, T_ref, b, em_out
+        del E, F, offF, P, T, E_ref, F_ref, P_ref, T_ref, b, em_out
         torch.cuda.empty_cache()
     return stats
 
@@ -851,10 +879,10 @@ def phase_generic_kernels(pore, device, rng, stats) -> None:
             def run_f():
                 return fk.forward_sm3(*fargs)
 
-            F = run_f()
+            F, offF = run_f()
 
             def run_b():
-                return fk.backward_sm3(edges, plan.match_state, b.E, F, b.diag_scalars,
+                return fk.backward_sm3(edges, plan.match_state, b.E, F, offF, b.diag_scalars,
                                        b.d_last, b.end, b.tp_scalar, pstates=pstates)
 
             P, T = run_b()
@@ -864,13 +892,14 @@ def phase_generic_kernels(pore, device, rng, stats) -> None:
             ms = {"forward": cuda_ms(run_f, 3), bname: cuda_ms(run_b, 3)}
             plain = {}
             if check:
-                F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+                (F_ref, offF_ref), plain["forward"] = timed_once(
+                    lambda: fk.forward_sm3_ref(*fargs))
                 (P_ref, T_ref), plain[bname] = timed_once(lambda: fk.backward_sm3_ref(
-                    edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end,
+                    edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
                     b.tp_scalar, pstates=pstates))
                 errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref),
                         "totals": max_err(T, T_ref)}
-                ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+                ok = {"F": forward_ok(F, offF, F_ref, offF_ref),
                       "p": errs["p"] <= P_ATOL,
                       "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))}
                 head += f": errors {errs}; ok {ok}"
@@ -886,9 +915,9 @@ def phase_generic_kernels(pore, device, rng, stats) -> None:
                                               nbytes(dl, edges, b.tp_scalar))
             n_post = len(pstates) if pstates else 1
             bounds = {"forward": bound(ops_per_cell("forward", edges), fwd_in
-                                       + nbytes(b.start, F), cells),
+                                       + nbytes(b.start, F, offF), cells),
                       bname: bound(ops_per_cell(bname, edges, plan.n_states, n_post),
-                                   bwd_in + nbytes(b.end, P, T), cells)}
+                                   bwd_in + nbytes(b.end, offF, P, T), cells)}
             print(f"{head}; ms kernel/plain/bound: "
                   + ", ".join(f"{k} {ms[k]:.3f}/"
                               + (f"{plain[k]:.3f}" if k in plain else "not timed")
@@ -897,24 +926,25 @@ def phase_generic_kernels(pore, device, rng, stats) -> None:
             if name == "echelon" and (W, Dp) == (128, 1024):
                 stats[bname].update(ms=ms[bname], plain_ms=plain[bname],
                                     bound_ms=bounds[bname][0], bound_by=bounds[bname][1])
-            del F, P, T, b
+            del F, offF, P, T, b
             torch.cuda.empty_cache()
 
-    # echelon on a 1024-lane window: 3 x 7 carry rows of 1026 floats (86 KB
+    # echelon on a 1024-lane window: 4 x 7 carry rows of 1026 floats (115 KB
     # of shared memory) leave no room for 3 E rows of 17 channels, so the
     # recursions take their unstaged route (csrc/fb_sm3.cu ring_depth)
     plan, b = generic_problems(pore, "echelon", WIDE_W, 360, 2, rng, device, n_distinct=2,
                                width_multiple=WIDE_W, bases=(150, 170))
     edges = pp.to_device(edge_table(plan), device)
     fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    F = fk.forward_sm3(*fargs)
-    bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(*fargs)
+    bargs = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
+             b.tp_scalar)
     P, T = fk.backward_sm3(*bargs, pstates=ECHELON_PSTATES)
     torch.cuda.synchronize()
-    F_ref = fk.forward_sm3_ref(*fargs)
+    F_ref, offF_ref = fk.forward_sm3_ref(*fargs)
     P_ref, T_ref = fk.backward_sm3_ref(*bargs, pstates=ECHELON_PSTATES)
     errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref), "totals": max_err(T, T_ref)}
-    ok = (torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL) and errs["p"] <= P_ATOL
+    ok = (forward_ok(F, offF, F_ref, offF_ref) and errs["p"] <= P_ATOL
           and torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))
     print(f"kernels echelon W={WIDE_W} Dp={b.diag_scalars.shape[1] - 1} B=2: errors "
           f"{errs}; ok {ok}", flush=True)
@@ -1128,8 +1158,8 @@ def phase_five_kernels(nuc, device, stats) -> None:
         def run_f():
             return fk.forward_sm3(*fargs)
 
-        F = run_f()
-        bargs = (edges, m, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+        F, offF = run_f()
+        bargs = (edges, m, b.E, F, offF, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
 
         def run_b():
             return fk.backward_sm3(*bargs)
@@ -1144,14 +1174,15 @@ def phase_five_kernels(nuc, device, stats) -> None:
               "backward_pgroups": cuda_ms(run_pg, 3)}
         plain, errs, ok = {}, {}, {}
         if full:
-            F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+            (F_ref, offF_ref), plain["forward"] = timed_once(
+                lambda: fk.forward_sm3_ref(*fargs))
             (P_ref, T_ref), plain["backward"] = timed_once(lambda: fk.backward_sm3_ref(*bargs))
             errs = {"F": max_err(F, F_ref), "p": max_err(P, P_ref),
                     "totals": max_err(T, T_ref)}
-            ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+            ok = {"F": forward_ok(F, offF, F_ref, offF_ref),
                   "p": errs["p"] <= P_ATOL,
                   "totals": bool(torch.allclose(T, T_ref, atol=F_ATOL, rtol=F_RTOL))}
-            del F_ref, P_ref, T_ref
+            del F_ref, offF_ref, P_ref, T_ref
         ref, plain["backward_pgroups"] = timed_once(lambda: fk.backward_sm3_ref(
             *bargs, 4, groups, None, pgroups))
         e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
@@ -1168,13 +1199,14 @@ def phase_five_kernels(nuc, device, stats) -> None:
         fwd_in, bwd_in = recursion_inputs(b.E, F, b.diag_scalars, dl,
                                           nbytes(dl, edges, b.tp_scalar))
         S = plan.n_states
-        bounds = {"forward": bound(ops_per_cell("forward", edges), fwd_in + nbytes(b.start, F),
+        bounds = {"forward": bound(ops_per_cell("forward", edges),
+                                   fwd_in + nbytes(b.start, F, offF),
                                    cells),
                   "backward": bound(ops_per_cell("backward", edges, S),
-                                    bwd_in + nbytes(b.end, P, T), cells),
+                                    bwd_in + nbytes(b.end, offF, P, T), cells),
                   "backward_pgroups": bound(ops_per_cell("backward_pgroups", edges, S,
                                                          wgroups=groups, pgroups=pgroups),
-                                            bwd_in + nbytes(b.end, *got), cells)}
+                                            bwd_in + nbytes(b.end, offF, *got), cells)}
         print(f"kernels fiveState plan ({S} states, {len(plan.edges)} edges, "
               f"{b.E.shape[2]} channels, {len(pgroups)} posterior channels) W={W} Dp={Dp} "
               f"B={B}: errors {errs}, pgroups stage 4 "
@@ -1196,7 +1228,7 @@ def phase_five_kernels(nuc, device, stats) -> None:
             st.update(ms=ms["backward_pgroups"], plain_ms=plain["backward_pgroups"],
                       bound_ms=bounds["backward_pgroups"][0],
                       bound_by=bounds["backward_pgroups"][1])
-        del F, P, T, got, ref, b
+        del F, offF, P, T, got, ref, b
         torch.cuda.empty_cache()
 
 
@@ -1486,8 +1518,8 @@ def phase_stage4_configs(pore, device, rng, stats) -> None:
             def run_f():
                 return fk.forward_sm3(*fargs)
 
-            F = run_f()
-            bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end,
+            F, offF = run_f()
+            bargs = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
                      b.tp_scalar)
 
             def run_b4():
@@ -1498,12 +1530,13 @@ def phase_stage4_configs(pore, device, rng, stats) -> None:
             ms = {"forward": cuda_ms(run_f, 3), kernel: cuda_ms(run_b4, 3)}
             plain, line = {}, ""
             if check:
-                F_ref, plain["forward"] = timed_once(lambda: fk.forward_sm3_ref(*fargs))
+                (F_ref, offF_ref), plain["forward"] = timed_once(
+                    lambda: fk.forward_sm3_ref(*fargs))
                 ref, plain[kernel] = timed_once(lambda: fk.backward_sm3_ref(
                     *bargs, 4, wgroups, None, pgroups))
                 e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
                               (max_err(a, r) for a, r in zip(got, ref))))
-                ok = {"F": bool(torch.allclose(F, F_ref, atol=F_ATOL, rtol=F_RTOL)),
+                ok = {"F": forward_ok(F, offF, F_ref, offF_ref),
                       "p": e4["p"] <= P_ATOL,
                       "totals": bool(torch.allclose(got[1], ref[1], atol=F_ATOL,
                                                     rtol=F_RTOL)),
@@ -1525,10 +1558,10 @@ def phase_stage4_configs(pore, device, rng, stats) -> None:
                                               nbytes(dl, edges, b.tp_scalar))
             S = plan.n_states
             bounds = {"forward": bound(ops_per_cell("forward", edges),
-                                       fwd_in + nbytes(b.start, F), cells),
+                                       fwd_in + nbytes(b.start, F, offF), cells),
                       kernel: bound(ops_per_cell(kernel, edges, S, wgroups=wgroups,
                                                  pgroups=pgroups or ()),
-                                    bwd_in + nbytes(b.end, *got), cells)}
+                                    bwd_in + nbytes(b.end, offF, *got), cells)}
             print(f"stage 4 {machine} plan ({S} states, {len(plan.edges)} edges, "
                   f"{b.E.shape[2]} channels, wgroups {wgroups}, pgroups {pgroups}) W={W} "
                   f"Dp={Dp} B={GENERIC_B}{line}; ms kernel/plain/bound: "
@@ -1536,7 +1569,7 @@ def phase_stage4_configs(pore, device, rng, stats) -> None:
                               + (f"{plain[k]:.3f}" if k in plain else "not timed")
                               + f"/{bounds[k][0]:.4f} ({bounds[k][1]})" for k in ms),
                   flush=True)
-            del F, got, b
+            del F, offF, got, b
             torch.cuda.empty_cache()
 
 
@@ -2006,6 +2039,274 @@ def phase_host_f64(tmp, nuc, ref, ref_seq, model, small, nhdp_paths, device, car
         raise AssertionError("host f64: an oracle E-step disagrees with its reference")
 
 
+def offset_problems(pore, device, rng) -> dict:
+    """{machine: (kernels' stage 4, plain versions' stage 4, batch)}: two
+    threeState problems at W = 64, Dp = 512 and one fiveState problem of a
+    200-base pair at W = 64, their start and end vectors on the 2^-7 grid."""
+    import torch
+
+    from cpecan_signal_tpu_torch import synthetic as syn
+    from cpecan_signal_tpu_torch.core.window import smooth_band
+    from cpecan_signal_tpu_torch.em.discrete import collect_symbol_split_jobs
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
+    from cpecan_signal_tpu_torch.engine.plan import edge_table
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams
+    from cpecan_signal_tpu_torch.models.state_machines import (bind_symbol_sequences,
+                                                                make_symbol_sm5)
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    def on_grid(v):
+        return torch.where(v > fk.NEG_INF / 2, torch.round(v / OFFSET_GRID) * OFFSET_GRID, v)
+
+    def plain(plan, b, E, one_group):   # run_sm3 / run_window, the plain versions
+        edges = pp.to_device(edge_table(plan), device)
+        F, offF = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start,
+                                     b.tp_scalar)
+        P, T, exits, gacc, st = fk.backward_sm3_ref(
+            edges, plan.match_state, E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar, 4, pp.sm3_wgroups(plan))
+        return (P, T, exits[:, :, 0], gacc[:, 0], st) if one_group else (P, T, exits,
+                                                                         gacc, st)
+
+    plan3, b3 = kernel_problems(pore, 64, 512, 2, rng, device)
+    x = "".join(rng.choice(list("ACGT"), 200))
+    y, truth = syn.evolve_with_truth(x, rng, 0.05, 0.01, 0.01)
+
+    def make_sm(a, b):
+        sm = make_symbol_sm5()
+        bind_symbol_sequences(sm, a, b)
+        return sm
+
+    job, = collect_symbol_split_jobs(make_sm, x, y, truth[::10], AlignmentParams(),
+                                     ragged_left=True, ragged_right=False)
+    wb = smooth_band(job.band, width_multiple=64)
+    plan5, prob = pp.make_window_problem(job.sm, wb, device=device, ragged_left=True,
+                                         ragged_right=False)
+    b5 = pp.stack_window_problems([prob])
+    Dp3 = b3.diag_scalars.shape[1] - 1
+    return {"threeState": (lambda b: pp.run_sm3(plan3, 64, b, stages=4),
+                           lambda b: plain(plan3, b, fk.emissions_sm3_ref(
+                               b.x0, b.yr0, b.xarr, b.evr, 64, Dp3), True),
+                           b3._replace(start=on_grid(b3.start), end=on_grid(b3.end))),
+            "fiveState": (lambda b: pp.run_window(plan5, wb.W, b, stages=4),
+                          lambda b: plain(plan5, b, b.E, False),
+                          b5._replace(start=on_grid(b5.start), end=on_grid(b5.end)))}
+
+
+def phase_offset(pore, device, rng, stats) -> None:
+    """The recursions' offsets on the card (tests/test_torch_offset.py's
+    checks): a start or end vector moved by -2^16 changes the kernels'
+    posteriors, pairs and stage-4 tallies by at most OFFSET_ATOL and moves
+    every total by 2^16, to the total's f32 spacing; and the kernels agree
+    with their plain versions on the moved inputs."""
+    import numpy as np
+    import torch
+
+    from cpecan_signal_tpu_torch.ops import fb_kernels as fk
+
+    for machine, (run, run_plain, base) in offset_problems(pore, device, rng).items():
+        want = run(base)
+        for vector in ("start", "end"):
+            moved = base._replace(**{vector: getattr(base, vector) - OFFSET_SHIFT})
+            got = run(moved)
+            ref = run_plain(moved)
+            torch.cuda.synchronize()
+            p_err = max_err(got[0], want[0])
+            pairs_ok = torch.equal(got[0] > 0.01, want[0] > 0.01)
+            t_want, t_got = want[1].cpu().numpy(), got[1].cpu().numpy()
+            real = t_want > fk.NEG_INF / 2
+            shift_err = np.abs(t_got[real] - (t_want[real] - np.float32(OFFSET_SHIFT)))
+            t_ok = bool((real == (t_got > fk.NEG_INF / 2)).all() and real.sum() > 100
+                        and (shift_err <= np.spacing(np.abs(t_got[real]))).all())
+            # exits, gacc and the per-edge tallies (the stats lanes below the
+            # likelihood's, which sums the moved totals)
+            tallies = [(g[..., :fk.LIK_LANE], w[..., :fk.LIK_LANE])
+                       if w.shape[-1] == fk.STATS_LANES else (g, w)
+                       for g, w in zip(got[2:], want[2:])]
+            tally_err = max(max_err(g, w) for g, w in tallies)
+            tally_ok = all(bool(torch.allclose(g, w, rtol=OFFSET_ATOL, atol=OFFSET_ATOL))
+                           for g, w in tallies)
+            e4 = dict(zip(("p", "totals", "exits", "gacc", "stats"),
+                          (max_err(a, r) for a, r in zip(got, ref))))
+            plain_ok = (e4["p"] <= P_ATOL and max(e4["exits"], e4["gacc"]) <= WIN_ATOL
+                        and bool(torch.allclose(got[1], ref[1], atol=F_ATOL, rtol=F_RTOL))
+                        and bool(torch.allclose(got[4], ref[4], atol=STATS_ATOL,
+                                                rtol=STATS_RTOL)))
+            ok = p_err <= OFFSET_ATOL and pairs_ok and t_ok and tally_ok
+            print(f"offset {machine} {vector} - 2^16: kernels against the unmoved run: p "
+                  f"err {p_err:.3g}, pairs equal {pairs_ok}, totals moved by 2^16 to "
+                  f"their spacing {t_ok} (largest error {float(shift_err.max()):.3g}), "
+                  f"tallies err {tally_err:.3g} (rtol and atol {OFFSET_ATOL}); against the plain "
+                  f"versions {e4}: ok {plain_ok}", flush=True)
+            if not (ok and plain_ok):
+                raise AssertionError(f"offset check failed: {machine} {vector}")
+            stats["backward_em"]["max_abs_err"] = max(stats["backward_em"]["max_abs_err"],
+                                                      e4["p"], e4["exits"], e4["gacc"])
+
+
+def drift_row(job, threshold, device) -> dict:
+    """One unsplit job through the kernels (engine/batch_align) and the f64
+    oracle on the card (exact logaddexp): its pairs missing and extra, and
+    the largest posterior drift on the pairs both give
+    (tools/torch_f32_drift.py's comparison)."""
+    import torch
+
+    from cpecan_signal_tpu_torch.engine import fb
+    from cpecan_signal_tpu_torch.engine.align import AlignedPairs, _extract_pairs
+    from cpecan_signal_tpu_torch.engine.batch_align import batch_align_jobs
+
+    (f32,) = batch_align_jobs([job], threshold, device=device)
+    t0 = time.perf_counter()
+    plan, inp = fb.prepare_inputs(job.sm, job.band, ragged_left=job.ragged_left,
+                                  ragged_right=job.ragged_right, device=device,
+                                  dtype=torch.float64)
+    F, B = fb.forward(plan, inp), fb.backward(plan, inp)
+    p, _ = fb.posterior_match_probs(plan, inp, F, B)
+    f64 = AlignedPairs(*_extract_pairs(p.double().cpu().numpy(), inp.x.cpu().numpy(),
+                                       inp.y.cpu().numpy(), threshold, job.off_x,
+                                       job.off_y))
+    a = {(x, y): q for q, x, y in f32.as_tuples()}
+    b = {(x, y): q for q, x, y in f64.as_tuples()}
+    common = set(a) & set(b)
+    return {"Dp": int(inp.valid.shape[0]), "W": int(inp.valid.shape[1]), "pairs": len(b),
+            "missing": len(set(b) - set(a)), "extra": len(set(a) - set(b)),
+            "drift": max((abs(a[k] - b[k]) / 1e7 for k in common), default=0.0),
+            "oracle_s": time.perf_counter() - t0}
+
+
+def phase_drift(long_jobs, nuc, params, device, card: str) -> None:
+    """The kernels' f32 posteriors against the f64 oracle at depth (ROADMAP
+    §3's fault, repaired by the offsets): the 50 kb read's unsplit job and a
+    100 kb fiveState record (the first guide record's pair, anchors at every
+    25th true pair, as tools/torch_f32_drift.py makes it).  Raises past
+    PAIR_TOL pairs or PROB_TOL drift."""
+    from cpecan_signal_tpu_torch.engine.align import collect_symbol_split_jobs
+    from cpecan_signal_tpu_torch.models.params import AlignmentParams
+    from cpecan_signal_tpu_torch.models.state_machines import (bind_symbol_sequences,
+                                                                make_symbol_sm5)
+
+    def make_sm(a, b):
+        sm = make_symbol_sm5()
+        bind_symbol_sequences(sm, a, b)
+        return sm
+
+    local = nuc["truth"][0]   # the first record: x from 0, y from its first pair
+    c = int(nuc["truth_all"][0, 1])
+    (five,) = collect_symbol_split_jobs(make_sm, nuc["x"][:NUC_BASES // NUC_RECORDS],
+                                        nuc["y"][c:c + int(local[-1, 1]) + 1],
+                                        local[::25], AlignmentParams(),
+                                        ragged_left=True, ragged_right=True)
+    (three,) = long_jobs
+    for name, job, threshold in (("threeState 50 kb read", three, params.threshold),
+                                 ("fiveState 100 kb record", five,
+                                  AlignmentParams().threshold)):
+        r = drift_row(job, threshold, device)
+        ok = max(r["missing"], r["extra"]) <= PAIR_TOL and r["drift"] <= PROB_TOL
+        print(f"drift {name}: Dp {r['Dp']} W {r['W']}, {r['pairs']} oracle pairs, "
+              f"missing {r['missing']} extra {r['extra']} (tol {PAIR_TOL}), max posterior "
+              f"drift {r['drift']:.4g} (tol {PROB_TOL}); oracle {r['oracle_s']:.1f} s; "
+              f"ok {ok}; card {card}", flush=True)
+        if not ok:
+            raise AssertionError(f"f32 drift past its limits: {name}")
+
+
+def launch_ranks(module: str, args: list[str], ranks: int, log_dir: str,
+                 timeout: int = 600) -> None:
+    """``python -m module args`` as ``ranks`` ranks of one gloo group on this
+    machine (on SIGALIGN_PLATFORM's device, the card here), each with the
+    SIGALIGN_* variables and its log in ``log_dir``; every rank must exit 0
+    within ``timeout`` seconds."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ, SIGALIGN_COORDINATOR=f"localhost:{port}",
+                   SIGALIGN_NUM_PROCS=str(ranks), SIGALIGN_PROC_ID=str(r))
+        log = open(os.path.join(log_dir, f"{module.rsplit('.', 1)[-1]}.rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
+                                       env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for proc, _log in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for r, (proc, log) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(log.name) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"{module} rank {r} exited {proc.returncode}:\n{tail}")
+
+
+def phase_distributed(tmp, ref, model, paths, fk) -> dict:
+    """DIST_RANKS ranks on the one card over gloo (parallel/distributed.py):
+    ``signal_align -s`` on DIST_READS reads and one ``train_models``
+    iteration, each against one process on the same reads: the same TSV
+    rows, and the trained tallies within the E-step limits.  Returns the
+    one-process runs' kernel launches."""
+    import numpy as np
+
+    from cpecan_signal_tpu_torch.cli import signal_align, train_models
+    from cpecan_signal_tpu_torch.em.accumulators import ContinuousPairHmm
+
+    reads = os.path.join(tmp, "reads_dist")
+    os.makedirs(reads)
+    for p in paths[:DIST_READS]:
+        os.symlink(p, os.path.join(reads, os.path.basename(p)))
+    sa = ["-d", reads, "-r", ref, "-T", model, "-C", model, "-s"]
+    tm = ["-r", ref, "-d", reads, "-T", model, "-C", model, "-i", "1"]
+    out = {name: os.path.join(tmp, f"dist_{name}") for name in ("sa1", "sa2", "tm1", "tm2")}
+    for d in out.values():
+        os.makedirs(d)
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rc = signal_align.main(sa + ["-o", out["sa1"]])
+        rc |= train_models.main(tm + ["-o", out["tm1"]])
+    t_one = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    t0 = time.perf_counter()
+    launch_ranks("cpecan_signal_tpu_torch.cli.signal_align", sa + ["-o", out["sa2"]],
+                 DIST_RANKS, tmp)
+    launch_ranks("cpecan_signal_tpu_torch.cli.train_models", tm + ["-o", out["tm2"]],
+                 DIST_RANKS, tmp)
+    t_two = time.perf_counter() - t0
+    rows = {}
+    for name in ("sa1", "sa2"):
+        with open(os.path.join(out[name], "posteriors.tsv")) as fh:
+            rows[name] = sorted(fh)
+    labels = {r.split("\t")[3] for r in rows["sa1"]}
+    same_rows = rows["sa1"] == rows["sa2"]
+    errs = {}
+    for strand in ("template", "complement"):
+        one, two = (ContinuousPairHmm.load(os.path.join(out[n], f"{strand}_trained.hmm"))
+                    for n in ("tm1", "tm2"))
+        for k in ("transitions", "kmer_gap"):
+            a, b = getattr(two, k), getattr(one, k)
+            errs[f"{strand} {k}"] = float(np.max(np.abs(a - b) - STEP_RTOL * np.abs(b)))
+        errs[f"{strand} likelihood"] = abs(two.likelihood - one.likelihood) / abs(one.likelihood)
+    ok = (rc == 0 and same_rows and len(labels) == DIST_READS
+          and all(v <= (LIK_RTOL if "likelihood" in k else STEP_ATOL)
+                  for k, v in errs.items()))
+    print(f"distributed: {DIST_RANKS} ranks on one card (gloo) against one process, "
+          f"{DIST_READS} reads: signal_align -s {len(rows['sa2'])} TSV rows, equal rows "
+          f"{same_rows}; train_models 1 iteration, tallies past rtol {STEP_RTOL} by at most "
+          f"(atol {STEP_ATOL}) / likelihood relative (tol {LIK_RTOL}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; one process {t_one:.1f} s, {DIST_RANKS} ranks {t_two:.1f} s (each rank "
+          f"starts a process); ok {ok}", flush=True)
+    if not ok:
+        raise AssertionError("the ranks disagree with one process")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2060,6 +2361,7 @@ def main() -> int:
         nuc = nucleotide_set(tmp)
         phase_five_kernels(nuc, device, stats)
         phase_stage4_configs(pore, device, rng, stats)
+        phase_offset(pore, device, rng, stats)
         mark("the kernel checks")
 
         # --- alignment path through the CLI; the reference and the reads
@@ -2134,11 +2436,15 @@ def main() -> int:
         phase_long_emissions(max(long_calls, key=lambda a: a[5]), card, stats)
         del long_calls
         mark("threeState alignment")
+        phase_drift(long_jobs, nuc, params, device, card)
+        mark("the f32 drift")
 
         # --- training path through the CLI, and one E-step against the CPU
         path_launches = [launches, phase_train(tmp, reads, ref, model, fk)]
         phase_em_agreement(paths, ref_seq, model, device)
         mark("threeState training")
+        path_launches.append(phase_distributed(tmp, ref, model, paths, fk))
+        mark("several processes")
 
         # --- the generic window machines through the CLI, each against the
         # CPU plain path on the jobs of the 5 smallest reads (echelon: the

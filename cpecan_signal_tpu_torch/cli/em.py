@@ -15,8 +15,12 @@ model.  Also the Hmm utilities (Jukes-Cantor start, tied emissions,
 cPecanEm.py:19-105) and the lastz scoring-matrix export
 (makeBlastScoringMatrix, cPecanEm.py:301-359).
 
-Not ported: several processes (SIGALIGN_COORDINATOR), ROADMAP queue 1,
-'Several processes'.
+Several processes (SIGALIGN_COORDINATOR, SIGALIGN_NUM_PROCS, SIGALIGN_PROC_ID;
+parallel/distributed.py): each rank runs the E-step of every n-th chunk from
+its rank on, on its own device; the chunks' tallies are rows of a table that
+the ranks sum (``allreduce_sum``: a chunk another rank ran is 0.0 here), and
+every rank then adds the rows in chunk order, so the model equals one
+process's bit for bit.  Rank 0 writes the model.
 """
 
 from __future__ import annotations
@@ -35,11 +39,10 @@ from ..em.accumulators import DiscreteHmm
 from ..io.cigar import CigarRecord, read_cigars
 from ..models.params import AlignmentParams
 from ..ops import fb_kernels as fk
+from ..parallel import distributed
 from ..utils.device import resolve_device
 
 SYMBOL_NUMBER = 4
-COORDINATOR = ("multi-process EM (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
-               "'Several processes'")
 
 
 def set_jukes_cantor(hmm: DiscreteHmm, divergence: float) -> None:
@@ -99,16 +102,25 @@ def _chunk_tallies_host(chunk, seqs, params, hmm, device, timing=None) -> Discre
 
 def _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing=None,
                       engine: str = "pallas") -> DiscreteHmm:
-    """Full E-step: per-chunk tallies, then an in-order sum over the chunks
-    (the reference's follow-on merge, cPecanEm.py:182-209)."""
+    """Full E-step: per-chunk tallies (with several processes, this rank's
+    chunks only) as rows of a table, the table summed across the ranks,
+    then the rows added in chunk order (the reference's follow-on merge,
+    cPecanEm.py:182-209): the same sum, bit for bit, for any process
+    count."""
     S, n = 5, SYMBOL_NUMBER
-    acc = DiscreteHmm.empty(S, n, pseudocount=1e-12)
+    table = np.zeros((len(trial_chunks), S * S + S * n * n + 1))
     tallies = _chunk_tallies_host if engine == "host" else _chunk_tallies
-    for chunk in trial_chunks:
-        a = tallies(chunk, seqs, params, hmm, device, timing)
-        acc.transitions += a.transitions
-        acc.emissions += a.emissions
-        acc.likelihood += float(a.likelihood)
+    for ci in range(distributed.process_index(), len(trial_chunks),
+                    distributed.process_count()):
+        a = tallies(trial_chunks[ci], seqs, params, hmm, device, timing)
+        table[ci] = np.concatenate([a.transitions.ravel(), a.emissions.ravel(),
+                                    [a.likelihood]])
+    (table,) = distributed.allreduce_sum(table)
+    acc = DiscreteHmm.empty(S, n, pseudocount=1e-12)
+    for row in table:
+        acc.transitions += row[:S * S].reshape(S, S)
+        acc.emissions += row[S * S:S * S + S * n * n].reshape(S, n, n)
+        acc.likelihood += float(row[-1])
     return acc
 
 
@@ -135,8 +147,9 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
 
     if engine not in ("auto", "pallas", "host"):
         raise ValueError(f"unknown E-step engine {engine!r}")
-    if os.environ.get("SIGALIGN_COORDINATOR") is not None:
-        raise NotImplementedError(COORDINATOR)
+    if os.environ.get("SIGALIGN_COORDINATOR") is not None and \
+            not distributed.is_initialized():
+        distributed.initialize()   # before the device is resolved
     engine = "pallas" if engine == "auto" else engine
     device = resolve_device() if device is None else device
 
@@ -185,7 +198,8 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
         hmm.running_likelihoods = running
         if best is None or hmm.likelihood > best.likelihood:
             best = hmm
-    best.write(output_model)
+    if distributed.process_index() == 0:
+        best.write(output_model)
     return best
 
 
@@ -258,7 +272,7 @@ def main(argv=None):
         max_bases_per_chunk=args.maxAlignmentLengthPerJob,
         set_jukes_cantor_divergence=args.setJukesCantorStartingEmissions,
         tie_emission_params=args.tieEmissions, engine=args.engine)
-    if args.blastScoringMatrixFile:
+    if args.blastScoringMatrixFile and distributed.process_index() == 0:
         from .realign import load_sequences
         seqs = list(load_sequences(args.fastas).values())
         with open(args.blastScoringMatrixFile, "w") as fh:

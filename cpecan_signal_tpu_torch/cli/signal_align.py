@@ -1,28 +1,44 @@
 """Multi-read alignment CLI: the signalAlign.py equivalent (port of
-cli/signal_align.py:104-204, 207-363, single process).
+cli/signal_align.py:104-204, 207-363).
 
 Enumerates fast5 and npRead files (shuffled, capped at --nb_files; a fast5
 read goes through io/fast5, which imports h5py only then), pools every
-read's template and complement split jobs into device batches (one
-process, one device, engine/batch_align), and writes the 15-column
-posterior TSV (signalAlign.py:54-146).  The machine is vanilla by default, threeState
+read's template and complement split jobs into device batches (one device,
+engine/batch_align), and writes the 15-column posterior TSV
+(signalAlign.py:54-146).  The machine is vanilla by default, threeState
 (-s), fourState or echelon.  Every machine takes the pooled route,
 echelon included (the JAX CLI aligns echelon reads one at a time).
+
+``--jobs N`` (N > 1) aligns the reads in N spawned worker processes, a
+read each, where the resolved device is the CPU (the reference's worker
+pool, signalAlign.py:103-146); on the card the reads share its batches, and
+``--jobs`` is not read (a stderr line says so).
+
+Several processes (SIGALIGN_COORDINATOR, SIGALIGN_NUM_PROCS,
+SIGALIGN_PROC_ID; parallel/distributed.py): every rank shuffles the paths
+with one seed, caps them, and aligns every n-th from its rank on, on its
+own device, into a part file of its own; after a barrier rank 0 merges the
+parts in rank order into posteriors.tsv (a shared filesystem).  Rank 0 first
+clears a stale posteriors.tsv and stale parts.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import multiprocessing as mp
 import os
 import random
 import sys
+
+import torch
 
 from ..engine.batch_align import assemble_pairs, batch_align_stream
 from ..io.fasta import read_first_sequence
 from ..io.npread import load_npread
 from ..models.params import cli_defaults
 from ..models.pore_model import load_pore_model
+from ..parallel import distributed
 from ..utils.device import resolve_device
 from .vanilla_align import finish_read, guide_alignment, prepare_read, strand_jobs
 
@@ -123,6 +139,18 @@ def _batch_align_all(work, device, timing=None):
     return out_early + out
 
 
+def _pool_init(n_threads: int) -> None:
+    """--jobs worker initializer: the parent's intra-op thread count."""
+    torch.set_num_threads(n_threads)
+
+
+def _align_one(item):
+    """--jobs work item: one (work index, work item) on the worker's CPU ->
+    its result, as _batch_align_all gives it."""
+    (result,) = _batch_align_all([item], torch.device("cpu"))
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="align many reads (signalAlign equivalent)")
     ap.add_argument("--file_directory", "-d", required=True,
@@ -149,13 +177,15 @@ def main(argv=None):
     sm_type = ("threeState" if args.strawMan else
                "fourState" if args.fourState else
                "echelon" if args.echelon else "vanilla")
-    if args.jobs > 1:
-        raise NotImplementedError("--jobs > 1 (per-read worker processes) is not "
-                                  "ported: ROADMAP queue 1, 'Several processes'")
-    if os.environ.get("SIGALIGN_COORDINATOR") is not None:
-        raise NotImplementedError("multi-host launch (SIGALIGN_COORDINATOR) is not "
-                                  "ported: ROADMAP queue 1, 'Several processes'")
+    dist_run = os.environ.get("SIGALIGN_COORDINATOR") is not None
+    if dist_run and not distributed.is_initialized():
+        distributed.initialize()   # before the device is resolved
     device = resolve_device()
+    jobs = args.jobs
+    if jobs > 1 and device.type != "cpu":
+        print(f"signal_align - --jobs {jobs} not read: the reads share {device}'s "
+              "batches", file=sys.stderr)
+        jobs = 1
     contig, ref_seq = read_first_sequence(args.ref)
     params = cli_defaults().with_(
         threshold=args.threshold, diagonal_expansion=args.diagonalExpansion,
@@ -168,21 +198,45 @@ def main(argv=None):
                        + glob.glob(os.path.join(args.file_directory, "*.npRead")))
     else:
         paths = sorted(glob.glob(args.file_directory))
-    random.shuffle(paths)  # signalAlign.py:92 shuffles before capping
+    if dist_run:
+        # every rank must cap and partition the same order
+        random.Random(0x51).shuffle(paths)
+    else:
+        random.shuffle(paths)  # signalAlign.py:92 shuffles before capping
     paths = paths[:args.nb_files]
-    if not paths:
+    rank = distributed.process_index()
+    if dist_run:
+        paths = distributed.partition_paths(paths)
+        print(f"signal_align - process {rank}/{distributed.process_count()}: "
+              f"{len(paths)} reads", file=sys.stderr)
+    elif not paths:
         print("signal_align - no input files", file=sys.stderr)
         return 1
 
     os.makedirs(args.output_location, exist_ok=True)
-    out_tsv = os.path.join(args.output_location, "posteriors.tsv")
-    if os.path.exists(out_tsv):
-        os.unlink(out_tsv)
+    final_tsv = out_tsv = os.path.join(args.output_location, "posteriors.tsv")
+    if rank == 0:
+        # a re-run into the same directory must not append to old rows
+        for stale in ([out_tsv] + glob.glob(os.path.join(args.output_location,
+                                                          "posteriors.part*.tsv"))):
+            if os.path.exists(stale):
+                os.unlink(stale)
+    if dist_run:
+        distributed.barrier("signal_align_clean")
+        out_tsv = os.path.join(args.output_location, f"posteriors.part{rank}.tsv")
     work = [(p, ref_seq, contig, args.templateModel, args.complementModel,
              params, sm_type, out_tsv, args.substitute, args.targetRegions)
             for p in paths]
     timing: dict = {}
-    results = {r[0]: r for r in _batch_align_all(list(enumerate(work)), device, timing)}
+    if jobs > 1:
+        # spawned workers (a fork is unsafe once the parent's OpenMP threads
+        # run); each aligns one read on the CPU, the results in work order
+        with mp.get_context("spawn").Pool(jobs, initializer=_pool_init,
+                                          initargs=(torch.get_num_threads(),)) as pool:
+            results = {r[0]: r for r in pool.map(_align_one, list(enumerate(work)))}
+    else:
+        results = {r[0]: r for r in _batch_align_all(list(enumerate(work)), device,
+                                                     timing)}
 
     # failure recovery: re-run errored reads, keyed by work index — never by
     # basename, which can collide across directories
@@ -204,6 +258,17 @@ def main(argv=None):
                 with open(part) as fh:
                     merged.write(fh.read())
                 os.unlink(part)
+    if dist_run:
+        # every rank has written its part; rank 0 merges them in rank order
+        distributed.barrier("signal_align_merge")
+        if rank == 0:
+            with open(final_tsv, "a") as merged:
+                for r in range(distributed.process_count()):
+                    part = os.path.join(args.output_location, f"posteriors.part{r}.tsv")
+                    if os.path.exists(part):
+                        with open(part) as fh:
+                            merged.write(fh.read())
+                        os.unlink(part)
     print(f"signal_align - aligned {ok}/{len(results)} reads -> {out_tsv}")
     print("signal_align - seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(timing.items())))

@@ -26,6 +26,16 @@ takes the device E-step, but the host route for threeStateHdp at
 ``--assignmentThreshold 0`` and, on the CPU, for ``--jobs > 1`` (as the JAX
 CLI routes them); on the card it reads no ``--jobs``, so the E-step stays
 there unless ``--engine host`` asks for the CPU pool.
+
+Several processes (SIGALIGN_COORDINATOR, SIGALIGN_NUM_PROCS,
+SIGALIGN_PROC_ID; parallel/distributed.py): each rank trains on every n-th
+read of the sorted list from its rank on, on its own device (ranks may share
+a card: the device E-step's bucket budget is divided among them), and the
+iteration's accumulators are summed across the ranks (``merge_accumulator``)
+before the M-step, so every rank takes the same M-step.  Rank 0 rebuilds the
+HDPs (the Gibbs chain is not reproducible) and writes them, the models and
+the checkpoints; the other ranks read the HDPs back after a barrier (a
+shared filesystem, as the reference's expectation files need).
 """
 
 from __future__ import annotations
@@ -58,14 +68,13 @@ from ..io.npread import load_npread
 from ..models.params import AlignmentParams, cli_defaults
 from ..models.pore_model import load_pore_model, scale_model
 from ..models.state_machines import make_signal_sm3, make_signal_sm3_hdp, make_signal_vanilla
+from ..parallel import distributed
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from .build_hdp import DEFAULT_GIBBS, _fresh_like
 from .vanilla_align import guide_alignment, rebased_anchor_pairs
 
 MACHINES = ("threeState", "vanilla", "threeStateHdp")
-COORDINATOR = ("multi-host training (SIGALIGN_COORDINATOR) is ROADMAP queue 1, "
-               "'Several processes'")
 # main's options that only threeStateHdp training reads
 HDP_FLAGS = ("templateHdp", "complementHdp", "assignmentThreshold", "samples",
              "burnIn", "thinning")
@@ -258,8 +267,12 @@ def train(ref_path: str, npread_paths: list[str], template_model_path: str,
         raise ValueError(f"EM for {sm_type} not driven by this CLI")
     if engine not in ("auto", "pallas", "host"):
         raise ValueError(f"unknown E-step engine {engine!r}")
-    if os.environ.get("SIGALIGN_COORDINATOR") is not None:
-        raise NotImplementedError(COORDINATOR)
+    dist_run = os.environ.get("SIGALIGN_COORDINATOR") is not None
+    if dist_run:
+        if not distributed.is_initialized():
+            distributed.initialize()   # before the device is resolved
+        npread_paths = distributed.partition_paths(sorted(npread_paths))
+    rank0 = distributed.process_index() == 0
     hdp = sm_type == "threeStateHdp"
     device = resolve_device() if device is None else device
     engine, jobs = _route(engine, jobs, device, hdp and assignment_threshold <= 0.0, log)
@@ -280,9 +293,11 @@ def train(ref_path: str, npread_paths: list[str], template_model_path: str,
         prep = _prepare_read(ref_seq, load_npread(path), params, descale=hdp)
         if prep is not None:
             reads.append(prep)
-    if not reads:
+    if not reads and not dist_run:
         raise RuntimeError("no mappable training reads")
-    log(f"train_models - using {len(reads)} reads")
+    log(f"train_models - using {len(reads)} reads"
+        + (f" (rank {distributed.process_index()} of {distributed.process_count()})"
+           if dist_run else ""))
 
     # every read's splits pooled into width buckets, built once; one budget
     # for both strands: one card
@@ -377,6 +392,7 @@ def train(ref_path: str, npread_paths: list[str], template_model_path: str,
                                           event_assignments=means)
             estep_s.append(time.perf_counter() - t0)
             for strand, acc in accs.items():
+                distributed.merge_accumulator(acc)
                 acc.normalize()
                 st = state[strand]
                 if sm_type == "threeState":
@@ -390,25 +406,37 @@ def train(ref_path: str, npread_paths: list[str], template_model_path: str,
             rebuild = ""
             if hdp:
                 t1 = time.perf_counter()
-                rebuilt |= _rebuild_hdps(nhdps, accs, gibbs)
+                if rank0:
+                    rebuilt |= _rebuild_hdps(nhdps, accs, gibbs)
                 gibbs_s.append(time.perf_counter() - t1)
                 rebuild = f", HDP rebuild {gibbs_s[-1]:.4f} s"
                 # serializing takes seconds a strand (about 4000 k-mers of 1200
                 # grid values in text), so the HDPs are written after the last
-                # iteration and where a checkpoint or the --jobs workers need them
-                if it == iterations - 1 or checkpoint_dir or pool is not None:
-                    for strand in rebuilt:
+                # iteration and where a checkpoint, the --jobs workers or the
+                # other ranks need them
+                if it == iterations - 1 or checkpoint_dir or pool is not None or dist_run:
+                    for strand in rebuilt if rank0 else ():
                         hdp_files[strand] = os.path.join(
                             out_dir, f"{STRAND_NAMES[strand]}_trained.nhdp")
                         nhdps[strand].serialize(hdp_files[strand])
+                if dist_run:
+                    distributed.barrier(f"hdp_rebuild_{it}")
+                    # the strands rank 0 rebuilt: those with assignments
+                    # (the merged accumulators are the same on every rank)
+                    for strand in () if rank0 else [s for s, a in accs.items()
+                                                    if a.n_assignments]:
+                        hdp_files[strand] = os.path.join(
+                            out_dir, f"{STRAND_NAMES[strand]}_trained.nhdp")
+                        nhdps[strand] = deserialize_nhdp(hdp_files[strand])
+                        rebuilt.add(strand)
             lik = sum(a.likelihood for a in accs.values())
             history.append(lik)
             log(f"train_models - iteration {it}: E-step {estep_s[-1]:.4f} s{rebuild}, "
                 f"likelihood {lik:.2f}")
             final = accs
-            for strand, name in STRAND_NAMES.items():
+            for strand, name in STRAND_NAMES.items() if rank0 else ():
                 final[strand].write(os.path.join(out_dir, f"{name}_trained.hmm"))
-            if checkpoint_dir:
+            if checkpoint_dir and rank0:
                 os.makedirs(checkpoint_dir, exist_ok=True)
                 ck_state = {"history": np.asarray(history)}
                 for strand, name in STRAND_NAMES.items():

@@ -11,7 +11,8 @@
 //   evr           (B, 2, lYp)     f32     reversed event rows (mean, noise)
 //   E             (B, De >= Dp+2, C, W)   emissions; rows >= Dp are 0
 //   ds            (B, ds_rows >= Dp+1, 8) int32 DS_* scalars (nh = 1)
-//   F             (B, Dp, S, W)   forward log-probs
+//   F             (B, Dp, S, W)   forward log-probs, row d relative to
+//   offF          (B, Dp)         f64: the absolute value is F + offF
 //   P             (B, Dp, P, W)   posteriors of the states in pmask (P = its
 //                                 set bits; the match state alone: (B, Dp, W)),
 //                                 or at stage 4 with edge groups the group sums
@@ -21,9 +22,10 @@
 //   gacc          (B, G, W)       stage 4: window-group tallies left at d = 0
 //   stats         (B, 128)        stage 4: lane e = edge-e posterior sum,
 //                                 lane LIK_LANE = likelihood
-//   work          backward scratch (backward_work_floats): b (B, Dp, S, W),
-//                 at stage 4 then the window-group sums (B, Dp, G, W) and the
-//                 per-edge lane sums (B, Dp, n_edges)
+//   work          backward scratch (backward_work_floats): offB (B, Dp) f64,
+//                 b (B, Dp, S, W) (relative to offB, as F to offF), at stage
+//                 4 then the window-group sums (B, Dp, G, W) and the per-edge
+//                 lane sums (B, Dp, n_edges)
 //
 // Every float operation that the reference logAdd and the Gaussian pack do
 // as separate multiply and add is written with __fmul_rn / __fadd_rn, which
@@ -56,7 +58,10 @@
 // (24.328), stage 4 6.131 (35.831), stage 4 with pgroups at fiveState
 // 11.709 (63.873), echelon pstates at Dp = 1024 5.437 (26.240); every
 // output equal to PR 4's bit for bit (stats within chip_smoke.py's stage-4
-// tolerance).  More in ../../PERF.md (Findings, PR 5).
+// tolerance).  The per-diagonal offsets (Kernel 2) cost 10-28 %: forward
+// 3.353 ms against 2.971 without them, stage 3 4.779 (4.233), stage 4 6.857
+// (6.163), pgroups 13.703 (11.781), pstates 6.149 (5.463) (the same tool,
+// one call).  More in ../../PERF.md (Findings, PR 5 and PR 9).
 //
 // Launch-bound instances and ptxas's registers (the same build): the
 // recursion <false> and <true> under RECURSION_THREADS (64 registers, no
@@ -92,6 +97,9 @@
 // The added scalar term of a padding edge: its value lies below NEG_INF, so
 // that its logAdd returns the running sum unchanged.
 #define PAD_TERM (-3e38f)
+// A row maximum at or below this holds no cell: its step shifts by 0.0
+// (ops/fb_kernels.SHIFT_FLOOR).
+#define SHIFT_FLOOR (-5e29f)
 
 enum { DS_FL = 0, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS };
 
@@ -504,10 +512,12 @@ __global__ void __launch_bounds__(1024) emissions_kernel(EmitParams p) {
 //
 // Design: one block per problem, W / LANES_PER_THREAD threads (thread t
 // holds lanes t, t + blockDim, ...), the whole diagonal loop in one launch.
-// The carries live in three rotating shared rows of S x (W + 2) floats (a
-// NEG_INF halo lane at each end makes the +-1 lane shift a plain offset);
-// one __syncthreads a diagonal publishes the new row.  A step's inputs come
-// from shared memory only:
+// The carries live in two pairs of shared rows of S x (W + 2) floats (a
+// NEG_INF halo lane at each end makes the +-1 lane shift a plain offset):
+// step i reads the pair the step before wrote (rows d -+ 1 and d -+ 2) and
+// writes the other (row d and row d -+ 1 again, shifted as below); one
+// __syncthreads a diagonal publishes them.  A step's inputs come from shared
+// memory only:
 //   * the E rows and diagonal-scalar rows stream through a ring of K slots
 //     filled by cp.async K - 2 steps ahead of use; the wait for the next
 //     step's group sits just before the diagonal's barrier, which publishes
@@ -515,7 +525,7 @@ __global__ void __launch_bounds__(1024) emissions_kernel(EmitParams p) {
 //     d + 1 and d + 2, the new one d + 1 = d_top + 1 - i) and scalar row d.
 //     K comes from ring_depth (as large as RING_MAX and the 227 KB allow);
 //     where not even 3 E rows fit beside the carry rows (echelon from
-//     W = 800: 17 channels, 7 states) K = 0 and the step reads E and the
+//     W = 736: 17 channels, 7 states) K = 0 and the step reads E and the
 //     scalar row from device memory (an instance of its own, so that the
 //     staged one reads shared memory with shared loads).
 //   * each edge's constants sit in shared records (load_edges), its scalar
@@ -539,6 +549,28 @@ __global__ void __launch_bounds__(1024) emissions_kernel(EmitParams p) {
 // instructions) the forward took 5.763 and 10.239 ms against 2.944 (same
 // call as above): a step is bound by instruction issue, each warp on its own
 // scheduler, not by the barrier.
+// Offsets.  A row is stored relative to an offset of its own, held in f64
+// (out is F + off absolute): absolute values reach the job's
+// log-likelihood, about -1e5 at 1e5 diagonals, where f32 rounds each cell
+// by 2^-7 and exp(F + b - total) carries 0.4 % of error into a posterior.
+// Step d subtracts a shift sh from its new row and from the row before it
+// (rewritten into the pair it writes, as the next step's middle source;
+// the thread rewrites its own lanes, so no other barrier is needed: the
+// forward keeps them in registers from the step before, the backward loads
+// them before the step's stores, each the faster of the two in one A/B at
+// W = 128, Dp = 4096, B = 64 (PERF.md, Findings PR 9); loaded after the
+// stores, every load waited behind them, 5-20 % slower) and
+// adds sh to the running offset, written to off[d] by thread 0.  sh is the
+// maximum of the start (end) vector at the first step, 0 at the second,
+// then the maximum of row d -+ 2 as stored less the previous shift, so that
+// the offset tracks the absolute maximum two diagonals back.  A row's
+// maximum costs no barrier: each thread keeps the maximum of what it
+// wrote, the next step reduces it by warp shuffles into a per-warp shared
+// slot (two sets, by parity) before that step's barrier, and the step after
+// reads the slots (a redux.sync on the floats' order-preserving int bits
+// in place of the shuffles took as long: 3.543 against 3.555 ms, forward
+// at W = 128, Dp = 4096, B = 64).  ops/fb_kernels.forward_sm3_ref and backward_sm3_ref
+// take the same steps.
 // The backward recursion writes b to device memory (work) and stops; its
 // epilogue is kernel 3.
 struct RecParams {
@@ -548,15 +580,20 @@ struct RecParams {
   const float* init;  // forward: start (B, S); backward: end (B, S)
   const float* tps;
   const int* edges;
-  float* out;  // forward: F; backward: b
+  float* out;   // forward: F; backward: b
+  double* off;  // (B, Dp) the offset each row of out is stored against
   int Dp, De, C, S, W, n_tp, n_edges, ds_rows, K;
 };
 
-// The 3 carry rows of S x (W + 2) floats, padded to 16 bytes (the E ring
-// follows them).
+// The 4 carry rows of S x (W + 2) floats (two pairs), padded to 16 bytes
+// (the E ring follows them).
 __host__ __device__ __forceinline__ int carry_floats(int S, int W) {
-  return (3 * S * (W + 2) + 3) & ~3;
+  return (4 * S * (W + 2) + 3) & ~3;
 }
+
+// The shift a step takes from a row maximum: 0.0 where the row holds no cell
+// above SHIFT_FLOOR (ops/fb_kernels._shift_of).
+__device__ __forceinline__ float shift_of(float m) { return m > SHIFT_FLOOR ? m : 0.0f; }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -616,25 +653,34 @@ __device__ __forceinline__ void ring_issue(const RecParams& p, const float* Eb,
 template <bool BACKWARD, int NS, int NCH, bool STAGED>
 __device__ __forceinline__ void recursion_steps(const RecParams& p, const EdgeRec* recs,
                                                 const unsigned char* slot, int rounds,
-                                                const float* sh_init, float* carry,
-                                                float* ering, int* dsring, int dtop,
-                                                int dlast, bool vec) {
+                                                const float* sh_init, float sh0,
+                                                float* carry, float* wmax, float* ering,
+                                                int* dsring, int dtop, int dlast,
+                                                bool vec) {
   constexpr int NL = LANES_PER_THREAD;
   const int b = blockIdx.x;
   const int S = p.S, W = p.W, WP = W + 2, C = p.C, K = p.K;
   const int NT = blockDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_steps = dtop + 1;
   const int CW = C * W, SWP = S * WP;
   const float* Eb = p.E + (size_t)b * p.De * CW;
   const int* dsb = p.ds + (size_t)b * p.ds_rows * 8;
   float* outb = p.out + (size_t)b * p.Dp * S * W;
+  double* offb = p.off + (size_t)b * p.Dp;
 
-  // ring slots of steps i, i - 1 and i + K - 2; carry rows of d, d -+ 1,
-  // d -+ 2 (each step moves every one by one)
+  // ring slots of steps i, i - 1 and i + K - 2
   int s_cur = 0, s_prev = K - 1, s_new = K - 2;
-  int c_cur = BACKWARD ? dtop % 3 : 0;
-  int c_1 = BACKWARD ? (dtop + 1) % 3 : 2, c_2 = BACKWARD ? (dtop + 2) % 3 : 1;
+  double off = 0.0;
+  float sh_last = 0.0f;
+  float tmax = NEG_INF;  // this thread's maximum of the row it wrote last
+  // and that row's values at its lanes (the forward keeps them from step to
+  // step; the backward loads them from the carry each step)
+  float last[NL][NS];
+#pragma unroll
+  for (int q = 0; q < NL; ++q)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) last[q][s] = NEG_INF;
   for (int i = 0; i < n_steps; ++i) {
     if (STAGED) {
       ring_issue<BACKWARD>(p, Eb, dsb, ering, dsring, i + K - 2, s_new, n_steps, dtop,
@@ -651,11 +697,18 @@ __device__ __forceinline__ void recursion_steps(const RecParams& p, const EdgeRe
     s_new = s_new + 1 == K ? 0 : s_new + 1;
     const int w0 = row[DS_W0], xl = row[DS_XMYL], xr = row[DS_XMYR];
     // the lower, middle and upper sources' lane shifts, and their carry rows
-    // (lower and upper: d -+ 1, middle: d -+ 2) with the shift folded in
+    // in the pair rp (lower and upper: d -+ 1, middle: d -+ 2) with the
+    // shift folded in; this step writes the pair wp
+    const int rp = (i & 1) ^ 1, wp = i & 1;
     const int shL = BACKWARD ? sgn(row[DS_BL]) : sgn(row[DS_FL]);
     const int shU = BACKWARD ? sgn(row[DS_BL] - 1) : sgn(row[DS_FL] + 1);
     const int shM = BACKWARD ? sgn(row[DS_BM]) : sgn(row[DS_FM]);
-    const int oL = c_1 * SWP + shL, oU = c_1 * SWP + shU, oM = c_2 * SWP + shM;
+    const int oL = 2 * rp * SWP + shL, oU = 2 * rp * SWP + shU,
+              oM = (2 * rp + 1) * SWP + shM;
+    // this warp's maximum of row d -+ 1, and the block's of row d -+ 2 from
+    // the slots the last barrier published
+    const float wm = warp_max(tmax);
+    const float m2 = warp_max(lane < (NT >> 5) ? wmax[rp * 32 + lane] : NEG_INF);
 
     float acc[NL][NS];
 #pragma unroll
@@ -690,10 +743,24 @@ __device__ __forceinline__ void recursion_steps(const RecParams& p, const EdgeRe
       }
     }
     // the start (forward, d = 0) or end vector (backward, d = d_last)
-    // replaces the recursion's value; cells off the band are NEG_INF
+    // replaces the recursion's value; cells off the band are NEG_INF; the
+    // new row and the row before it both less the step's shift
     const bool at_init = BACKWARD ? d == dlast : d == 0;
-    float* cur = carry + c_cur * SWP + 1;
+    const float sh = at_init ? sh0 : (m2 > SHIFT_FLOOR ? __fsub_rn(m2, sh_last) : 0.0f);
+    float* cur = carry + 2 * wp * SWP + 1;
+    float* old = cur + SWP;
     float* outd = outb + (size_t)d * S * W;
+    if (BACKWARD) {
+      // loaded before the stores, behind which the compiler would keep each
+      // load (the rows may alias)
+      const float* prev = carry + 2 * rp * SWP + 1;
+#pragma unroll
+      for (int q = 0; q < NL; ++q)
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (s < S) last[q][s] = prev[s * WP + tid + q * NT];
+    }
+    float tm = NEG_INF;
 #pragma unroll
     for (int q = 0; q < NL; ++q) {
       const int j = tid + q * NT;
@@ -703,20 +770,26 @@ __device__ __forceinline__ void recursion_steps(const RecParams& p, const EdgeRe
       for (int s = 0; s < NS; ++s) {
         if (s < S) {
           float v = at_init ? sh_init[s] : acc[q][s];
-          v = valid ? v : NEG_INF;
+          v = valid ? __fsub_rn(v, sh) : NEG_INF;
           cur[s * WP + j] = v;
           outd[s * W + j] = v;
+          old[s * WP + j] = __fsub_rn(last[q][s], sh);
+          if (!BACKWARD) last[q][s] = v;
+          tm = fmaxf(tm, v);
         }
       }
     }
-    // the rows rotate: forward d - 2 <- d - 1 <- d; backward d + 2 <- d + 1 <- d
-    const int c_old = c_2;
-    c_2 = c_1;
-    c_1 = c_cur;
-    c_cur = c_old;
+    off += (double)sh;
+    if (tid == 0) offb[d] = off;
+    if (lane == 0) wmax[wp * 32 + warp] = wm;
+    tmax = tm;
+    sh_last = sh;
     if (STAGED) cp_async_wait(K - 3);
     __syncthreads();
   }
+  // the rows no step wrote: past d_last for the forward (F there is
+  // NEG_INF), above d_top for the backward
+  for (int d = dtop + 1 + tid; d < p.Dp; d += NT) offb[d] = BACKWARD ? 0.0 : off;
 }
 
 // Thread 0 plans the rounds: slot[r * MAX_S + s] is the r-th edge of state
@@ -746,19 +819,20 @@ template <bool BACKWARD, int NS>
 __device__ __forceinline__ void recursion_nch(int nch, const RecParams& p,
                                               const EdgeRec* recs,
                                               const unsigned char* slot, int rounds,
-                                              const float* sh_init, float* carry,
-                                              float* ering, int* dsring, int dtop,
-                                              int dlast, bool vec) {
+                                              const float* sh_init, float sh0,
+                                              float* carry, float* wmax, float* ering,
+                                              int* dsring, int dtop, int dlast,
+                                              bool vec) {
   if (nch <= 1)
-    recursion_steps<BACKWARD, NS, 1, true>(p, recs, slot, rounds, sh_init, carry, ering,
-                                           dsring, dtop, dlast, vec);
+    recursion_steps<BACKWARD, NS, 1, true>(p, recs, slot, rounds, sh_init, sh0, carry,
+                                           wmax, ering, dsring, dtop, dlast, vec);
   else if (nch <= 3)
-    recursion_steps<BACKWARD, NS, 3, true>(p, recs, slot, rounds, sh_init, carry, ering,
-                                           dsring, dtop, dlast, vec);
+    recursion_steps<BACKWARD, NS, 3, true>(p, recs, slot, rounds, sh_init, sh0, carry,
+                                           wmax, ering, dsring, dtop, dlast, vec);
   else
-    recursion_steps<BACKWARD, NS, 1 + MAX_IDS, true>(p, recs, slot, rounds, sh_init,
-                                                     carry, ering, dsring, dtop, dlast,
-                                                     vec);
+    recursion_steps<BACKWARD, NS, 1 + MAX_IDS, true>(p, recs, slot, rounds, sh_init, sh0,
+                                                     carry, wmax, ering, dsring, dtop,
+                                                     dlast, vec);
 }
 
 template <bool BACKWARD>
@@ -768,6 +842,7 @@ __global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams 
   __shared__ unsigned char slot[MAX_EDGES * MAX_S];
   __shared__ int sh_rounds, sh_nch;
   __shared__ float sh_init[MAX_S];
+  __shared__ float wmax[2 * 32];  // per-warp row maxima, two sets by parity
   const int b = blockIdx.x;
   const int S = p.S, W = p.W, WP = W + 2, C = p.C, K = p.K;
   float* carry = smem;
@@ -777,7 +852,8 @@ __global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams 
   if (threadIdx.x == 0)
     sh_rounds = build_rounds(p.edges, p.n_edges, BACKWARD, slot, &sh_nch);
   if (threadIdx.x < S) sh_init[threadIdx.x] = p.init[(size_t)b * S + threadIdx.x];
-  for (int i = threadIdx.x; i < 3 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
+  for (int i = threadIdx.x; i < 4 * S * WP; i += blockDim.x) carry[i] = NEG_INF;
+  if (threadIdx.x < 2 * 32) wmax[threadIdx.x] = NEG_INF;
 
   const int dlast = p.d_last[b];
   const int dtop = min(dlast, p.Dp - 1);
@@ -804,19 +880,23 @@ __global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams 
   }
   __syncthreads();
   const int rounds = sh_rounds, nch = sh_nch;
+  // the first step's shift: the maximum of the start (end) vector
+  float m0 = NEG_INF;
+  for (int s = 0; s < S; ++s) m0 = fmaxf(m0, sh_init[s]);
+  const float sh0 = shift_of(m0);
   if (K == 0)  // no ring: E and the scalar rows from device memory, any plan
     recursion_steps<BACKWARD, MAX_S, 1 + MAX_IDS, false>(p, recs, slot, rounds, sh_init,
-                                                         carry, ering, dsring, dtop,
-                                                         dlast, vec);
+                                                         sh0, carry, wmax, ering, dsring,
+                                                         dtop, dlast, vec);
   else if (S <= 3)
-    recursion_nch<BACKWARD, 3>(nch, p, recs, slot, rounds, sh_init, carry, ering, dsring,
-                               dtop, dlast, vec);
+    recursion_nch<BACKWARD, 3>(nch, p, recs, slot, rounds, sh_init, sh0, carry, wmax,
+                               ering, dsring, dtop, dlast, vec);
   else if (S <= 5)
-    recursion_nch<BACKWARD, 5>(nch, p, recs, slot, rounds, sh_init, carry, ering, dsring,
-                               dtop, dlast, vec);
+    recursion_nch<BACKWARD, 5>(nch, p, recs, slot, rounds, sh_init, sh0, carry, wmax,
+                               ering, dsring, dtop, dlast, vec);
   else
-    recursion_nch<BACKWARD, MAX_S>(nch, p, recs, slot, rounds, sh_init, carry, ering,
-                                   dsring, dtop, dlast, vec);
+    recursion_nch<BACKWARD, MAX_S>(nch, p, recs, slot, rounds, sh_init, sh0, carry, wmax,
+                                   ering, dsring, dtop, dlast, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -855,6 +935,13 @@ __global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams 
 // the posteriors exp(min(F + b - total, 0)) of the states in pmask (the
 // match state alone without PSTATES), masked to x > 0 and y > 0.
 //
+// Offsets: F[d] and b[d] are stored relative to offF[d] and offB[d] (Kernel
+// 2), so v1 and the total are relative to offF[d] + offB[d]; v2 adds the
+// f32 difference of (offF[d-1] + offB[d+1]) from that, and a stage-4 term
+// of F[d-1] or F[d-2] that of offF[d-1] or offF[d-2] from offF[d].  The
+// totals output holds the absolute total, ((f64) total + offF[d]) +
+// offB[d] stored as f32: the carry kernel's likelihood lane sums it.
+//
 // Stage 4 (the EM E-step's tallies, ops/pallas_fb.py:559-624) adds one
 // posterior per edge and cell, exp(min(F_src[frm] + b[to] + E[d] + tp -
 // total, 0)) with F[d-1] / F[d-2] read at the forward's shifts of row d:
@@ -866,7 +953,9 @@ __global__ void __launch_bounds__(RECURSION_THREADS) recursion_kernel(RecParams 
 struct EpiParams {
   const float* E;
   const float* F;
-  const float* bw;  // b (B, Dp, S, W) from the backward recursion
+  const double* offF;  // (B, Dp) F's offsets
+  const float* bw;     // b (B, Dp, S, W) from the backward recursion
+  const double* offB;  // (B, Dp) b's offsets
   const int* ds;
   const int* d_last;
   const float* tps;
@@ -927,6 +1016,13 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(EpiParams p) {
   const float* bd = p.bw + ((size_t)b * p.Dp + d) * SW;
   const bool has_b1 = d + 1 <= min(dlast, p.Dp - 1);
   const float* E1 = p.E + ((size_t)b * p.De + d + 1) * C * W;
+  // the other diagonals' offsets against offF[d] + offB[d], as f32
+  const double* oF = p.offF + (size_t)b * p.Dp;
+  const double* oB = p.offB + (size_t)b * p.Dp;
+  const float dF1 = d >= 1 ? (float)(oF[d - 1] - oF[d]) : 0.0f;
+  const float dF2 = d >= 2 ? (float)(oF[d - 2] - oF[d]) : 0.0f;
+  const float dv2 =
+      d >= 1 && has_b1 ? (float)((oF[d - 1] - oF[d]) + (oB[d + 1] - oB[d])) : 0.0f;
   float* v1s = scratch + (size_t)warp * (2 * SW + (EM ? 32 * p.n_edges : 0));
   float* v2s = v1s + SW;
 
@@ -954,7 +1050,8 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(EpiParams p) {
     for (int s = 0; s < MAX_S; ++s) {
       if (s < S) {
         const float v1 = __fadd_rn(__fadd_rn(Fd[s * W + j], bd[s * W + j]), vmask);
-        const float v2 = __fadd_rn(c[s], has_b1 ? bd[SW + s * W + j] : NEG_INF);
+        const float v2 =
+            __fadd_rn(__fadd_rn(c[s], has_b1 ? bd[SW + s * W + j] : NEG_INF), dv2);
         v1s[s * W + j] = v1;
         v2s[s * W + j] = v2;
         m1 = fmaxf(m1, v1);
@@ -981,7 +1078,7 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(EpiParams p) {
   const float t1 = lse_finish(m1, s1);
   const float t2 = lse_finish(m2, s2);
   const float total = (d >= 1 && d < p.Dp - 1) ? ladd(t1, t2) : t1;
-  if (lane == 0) p.T[(size_t)b * p.Dp + d] = total;
+  if (lane == 0) p.T[(size_t)b * p.Dp + d] = (float)(((double)total + oF[d]) + oB[d]);
 
   // posteriors of the states in pmask, masked to x > 0 and y > 0 (v1 is
   // F + b there: the mask adds 0.0); with edge groups P is written below
@@ -1028,7 +1125,8 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(EpiParams p) {
         const int dd = src == SRC_MIDDLE ? d - 2 : d - 1;
         const int jj = j + sh;
         const float f = Fb[max(dd, 0) * SW + rec_frm(er) * W + min(max(jj, 0), W - 1)];
-        const float fv = (dd >= 0 && jj >= 0 && jj < W) ? f : NEG_INF;
+        const float fv = __fadd_rn((dd >= 0 && jj >= 0 && jj < W) ? f : NEG_INF,
+                                   src == SRC_MIDDLE ? dF2 : dF1);
         const float bto = bd[rec_to(er) * W + j];
         const float logp = __fsub_rn(
             rec_add_t(__fadd_rn(__fadd_rn(fv, bto), rec_esum<1 + MAX_IDS>(Ed, er, j)), er), total);
@@ -1216,7 +1314,8 @@ static cudaError_t launch_recursion(RecParams p, int B, cudaStream_t stream) {
 
 // The backward pass: recursion into work, the epilogue, at stage 4 the carry.
 template <bool EM, bool PSTATES, bool PGROUPS>
-static cudaError_t launch_backward(const float* E, const float* F, const int* ds,
+static cudaError_t launch_backward(const float* E, const float* F, const double* offF,
+                                   const int* ds,
                                    const int* d_last, const float* end,
                                    const float* tps, const int* edges, float* P,
                                    float* T, float* exits, float* gacc, float* stats,
@@ -1225,14 +1324,16 @@ static cudaError_t launch_backward(const float* E, const float* F, const int* ds
                                    int G, const unsigned* gm, const ChannelGroups& pgm,
                                    int NP, float* work, cudaStream_t stream) {
   if (W % LANES_PER_THREAD) return cudaErrorInvalidValue;
-  float* bw = work;
-  const RecParams rp = {E, ds, d_last, end, tps, edges, bw, Dp, De, C, S, W,
+  double* offB = reinterpret_cast<double*>(work);
+  float* bw = work + (size_t)2 * B * Dp;
+  const RecParams rp = {E, ds, d_last, end, tps, edges, bw, offB, Dp, De, C, S, W,
                         n_tp, n_edges, ds_rows, 0};
   cudaError_t err = launch_recursion<true>(rp, B, stream);
   if (err != cudaSuccess) return err;
 
   EpiParams ep = {};
-  ep.E = E; ep.F = F; ep.bw = bw; ep.ds = ds; ep.d_last = d_last; ep.tps = tps;
+  ep.E = E; ep.F = F; ep.offF = offF; ep.bw = bw; ep.offB = offB;
+  ep.ds = ds; ep.d_last = d_last; ep.tps = tps;
   ep.edges = edges; ep.P = P; ep.T = T;
   ep.pg = bw + (size_t)B * Dp * S * W;
   ep.part = ep.pg + (size_t)B * Dp * G * W;
@@ -1299,21 +1400,23 @@ int fb_emissions_sm3(const int* x0, const int* yr0, const float* xarr,
   return (int)cudaGetLastError();
 }
 
+// offF (B, Dp) f64: the offset each row of F is stored against.
 int fb_forward(const float* E, const int* ds, const int* d_last,
                const float* start, const float* tps, const int* edges, float* F,
-               int B, int Dp, int De, int C, int S, int W, int n_tp,
+               double* offF, int B, int Dp, int De, int C, int S, int W, int n_tp,
                int n_edges, int ds_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (W % LANES_PER_THREAD) return (int)cudaErrorInvalidValue;
-  const RecParams rp = {E, ds, d_last, start, tps, edges, F, Dp, De, C, S, W,
+  const RecParams rp = {E, ds, d_last, start, tps, edges, F, offF, Dp, De, C, S, W,
                         n_tp, n_edges, ds_rows, 0};
   return (int)launch_recursion<false>(rp, B, (cudaStream_t)stream);
 }
 
+// offF: the forward's offsets (fb_forward).
 // Stage 3: pmask (bits < S) lists the states of P's channels, in order;
 // 1 << match_state for the match posterior alone.  work: backward_work_floats.
-int fb_backward_sm3(const float* E, const float* F, const int* ds,
+int fb_backward_sm3(const float* E, const float* F, const double* offF, const int* ds,
                     const int* d_last, const float* end, const float* tps,
                     const int* edges, float* P, float* T, int B, int Dp, int De,
                     int C, int S, int W, int n_tp, int n_edges, int ds_rows,
@@ -1326,18 +1429,18 @@ int fb_backward_sm3(const float* E, const float* F, const int* ds,
   const int np = __builtin_popcount(pmask);
   if (np == 1)
     return (int)launch_backward<false, false, false>(
-        E, F, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp,
+        E, F, offF, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp,
         De, C, S, W, n_tp, n_edges, ds_rows, (unsigned)pmask, 0, gm, no_groups, 1,
         work, (cudaStream_t)stream);
   return (int)launch_backward<false, true, false>(
-      E, F, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp, De,
+      E, F, offF, ds, d_last, end, tps, edges, P, T, nullptr, nullptr, nullptr, B, Dp, De,
       C, S, W, n_tp, n_edges, ds_rows, (unsigned)pmask, 0, gm, no_groups, np, work,
       (cudaStream_t)stream);
 }
 
 // Stage 4: G (1..MAX_G) window groups; gm<g> is group g's edge bitmask
 // (bit e = edge e), 0 for the unused groups.
-int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
+int fb_backward_sm3_em(const float* E, const float* F, const double* offF, const int* ds,
                        const int* d_last, const float* end, const float* tps,
                        const int* edges, float* P, float* T, float* exits,
                        float* gacc, float* stats, int B, int Dp, int De, int C,
@@ -1352,7 +1455,7 @@ int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
                               (unsigned)gm3};
   const ChannelGroups no_groups = {};
   return (int)launch_backward<true, false, false>(
-      E, F, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
+      E, F, offF, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
       W, n_tp, n_edges, ds_rows, 1u << match_state, G, gm, no_groups, 1, work,
       (cudaStream_t)stream);
 }
@@ -1360,7 +1463,7 @@ int fb_backward_sm3_em(const float* E, const float* F, const int* ds,
 // Stage 4 with edge groups: as fb_backward_sm3_em, but P (B, Dp, NPG, W)
 // carries the NPG (1..MAX_S) channels of the per-edge posteriors summed
 // over the edges of masks[c] (a host array; bit e = edge e < n_edges).
-int fb_backward_sm3_pgroups(const float* E, const float* F, const int* ds,
+int fb_backward_sm3_pgroups(const float* E, const float* F, const double* offF, const int* ds,
                             const int* d_last, const float* end,
                             const float* tps, const int* edges, float* P,
                             float* T, float* exits, float* gacc, float* stats,
@@ -1382,7 +1485,7 @@ int fb_backward_sm3_pgroups(const float* E, const float* F, const int* ds,
   const unsigned gm[MAX_G] = {(unsigned)gm0, (unsigned)gm1, (unsigned)gm2,
                               (unsigned)gm3};
   return (int)launch_backward<true, false, true>(
-      E, F, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
+      E, F, offF, ds, d_last, end, tps, edges, P, T, exits, gacc, stats, B, Dp, De, C, S,
       W, n_tp, n_edges, ds_rows, 1u, G, gm, groups, NPG, work,
       (cudaStream_t)stream);
 }

@@ -39,6 +39,7 @@ from ..models.params import AlignmentParams
 from ..models.pore_model import PoreModel, scale_model
 from ..models.state_machines import (LOG_TENTH, SM3_NANOPORE_TRANSITIONS,
                                      make_signal_sm3)
+from ..parallel.distributed import ranks_sharing_device
 
 MAX_BUCKET = 64  # problems per device batch (bounds host packing memory)
 BUDGET_ENV = "CPECAN_EM_HBM_BUDGET"   # bytes of buckets kept on the card
@@ -53,7 +54,9 @@ class _EmBudget:
     """Bytes of buckets kept on ``device`` across one build set (both
     strands), and the residency decision for each bucket.  The budget is
     ``budget`` if given, else $CPECAN_EM_HBM_BUDGET, else half of the card's
-    free memory when the budget is made (on the CPU: no limit)."""
+    free memory when the budget is made, divided among the ranks of this
+    host that share the card (parallel/distributed.ranks_sharing_device; on
+    the CPU: no limit)."""
 
     def __init__(self, device: torch.device, budget: float | None = None):
         self.device = device
@@ -61,7 +64,7 @@ class _EmBudget:
             budget = float(os.environ[BUDGET_ENV])
         if budget is None:
             budget = (BUDGET_FREE_SHARE * torch.cuda.mem_get_info(device)[0]
-                      if device.type == "cuda" else math.inf)
+                      / ranks_sharing_device() if device.type == "cuda" else math.inf)
         self.budget = budget
         self.resident = 0
         self.streamed = 0

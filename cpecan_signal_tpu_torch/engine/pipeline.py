@@ -218,9 +218,9 @@ def run_sm3(plan: EnginePlan, W: int, batch: SM3Problem, stages: int = 3):
     Dp = batch.diag_scalars.shape[1] - 1
     edges = to_device(edge_table(plan), batch.xarr.device)
     E = fk.emissions_sm3(batch.x0, batch.yr0, batch.xarr, batch.evr, W, Dp)
-    F = fk.forward_sm3(edges, E, batch.diag_scalars, batch.d_last, batch.start,
-                       batch.tp_scalar)
-    out = fk.backward_sm3(edges, plan.match_state, E, F, batch.diag_scalars,
+    F, offF = fk.forward_sm3(edges, E, batch.diag_scalars, batch.d_last, batch.start,
+                             batch.tp_scalar)
+    out = fk.backward_sm3(edges, plan.match_state, E, F, offF, batch.diag_scalars,
                           batch.d_last, batch.end, batch.tp_scalar, stages=stages,
                           wgroups=sm3_wgroups(plan) if stages == 4 else None)
     if stages == 3:
@@ -466,10 +466,10 @@ def run_window(plan: EnginePlan, W: int, batch: WindowProblem, stages: int = 3,
     if batch.E.shape[-1] != W:
         raise ValueError(f"E has {batch.E.shape[-1]} lanes, not W = {W}")
     edges = to_device(edge_table(plan), batch.E.device)
-    F = fk.forward_sm3(edges, batch.E, batch.diag_scalars, batch.d_last, batch.start,
-                       batch.tp_scalar)
+    F, offF = fk.forward_sm3(edges, batch.E, batch.diag_scalars, batch.d_last,
+                             batch.start, batch.tp_scalar)
     if stages == 4 and wgroups is None:
         wgroups = sm3_wgroups(plan)
-    return fk.backward_sm3(edges, plan.match_state, batch.E, F, batch.diag_scalars,
+    return fk.backward_sm3(edges, plan.match_state, batch.E, F, offF, batch.diag_scalars,
                            batch.d_last, batch.end, batch.tp_scalar, stages=stages,
                            wgroups=wgroups, pstates=pstates, pgroups=pgroups)

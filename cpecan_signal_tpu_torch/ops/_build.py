@@ -32,15 +32,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fb_error_string": ([_I], ctypes.c_char_p),
     "fb_emissions_sm3": ([_P] * 5 + [_I] * 7 + [_I, _P], _I),
-    "fb_forward": ([_P] * 7 + [_I] * 9 + [_I, _P], _I),
-    # ..., ds_rows, the state mask of the posterior channels, the workspace
-    "fb_backward_sm3": ([_P] * 9 + [_I] * 10 + [_P] + [_I, _P], _I),
+    # ..., F, offF (f64), then the sizes
+    "fb_forward": ([_P] * 8 + [_I] * 9 + [_I, _P], _I),
+    # E, F, offF, ...; ..., ds_rows, the state mask of the posterior
+    # channels, the workspace
+    "fb_backward_sm3": ([_P] * 10 + [_I] * 10 + [_P] + [_I, _P], _I),
     # + exits, gacc, stats; ..., ds_rows, match state, G, the MAX_G group
     # bitmasks, the workspace
-    "fb_backward_sm3_em": ([_P] * 12 + [_I] * 15 + [_P] + [_I, _P], _I),
+    "fb_backward_sm3_em": ([_P] * 13 + [_I] * 15 + [_P] + [_I, _P], _I),
     # + exits, gacc, stats; ..., ds_rows, G, the MAX_G group bitmasks, the
     # channel count, a host array of its 64-bit edge-group masks, the workspace
-    "fb_backward_sm3_pgroups": ([_P] * 12 + [_I] * 15 + [_P, _P] + [_I, _P], _I),
+    "fb_backward_sm3_pgroups": ([_P] * 13 + [_I] * 15 + [_P, _P] + [_I, _P], _I),
     # (S, C, W, n_edges, stage 4?) -> 4 ints: ring slots, recursion shared
     # bytes, epilogue warps, epilogue shared bytes
     "fb_launch_config": ([_I] * 5 + [_P], None),

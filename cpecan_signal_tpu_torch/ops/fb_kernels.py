@@ -12,7 +12,8 @@ Inputs keep the JAX package's layouts (ops/pallas_fb.py) at nh = 1:
 ``x0``/``yr0`` (B, Dp+1) int32, ``xarr`` (B, 13, lXp), ``evr`` (B, 2, lYp),
 ``diag_scalars`` (B, Dp+1, 1, 8) int32, ``d_last`` (B,), ``start``/``end``
 (B, S), ``tp_scalar`` (B, n) f32.  Outputs drop the TPU halo and padding:
-E (B, Dp+2, 3, W), F (B, Dp, S, W), p (B, Dp, W), totals (B, Dp), and at
+E (B, Dp+2, 3, W), F (B, Dp, S, W) with its per-diagonal offsets offF (B,
+Dp) f64 (``forward_sm3``), p (B, Dp, W), totals (B, Dp), and at
 stage 4 (the EM tallies) exits (B, Dp, G), gacc (B, G, W), stats (B, 128).
 With ``pstates`` (the echelon posteriors, stage 3) or ``pgroups`` (the
 per-edge-group posterior sums, stage 4) p is (B, Dp, P, W).
@@ -32,6 +33,7 @@ from ..models.state_machines import SRC_MIDDLE
 from ..engine.plan import EDGE_COLS, MAX_EDGE_IDS
 
 NEG_INF = -1e30  # finite stand-in for log(0): keeps f32 arithmetic NaN-free
+SHIFT_FLOOR = NEG_INF / 2   # a row whose maximum is at or below this gives no shift
 _LOG_UNDERFLOW = 7.5
 N_XPARAMS = 13   # rows of the per-x parameter pack (see emissions_sm3)
 DS_FL, DS_FM, DS_BL, DS_BM, DS_W0, DS_XMYL, DS_XMYR, DS_XS = range(8)
@@ -53,11 +55,11 @@ EPI_WARPS = 8                # diagonals (warps) of an epilogue block
 
 
 def ring_depth(S: int, C: int, W: int) -> tuple[int, int]:
-    """(E-ring slots, dynamic shared bytes) of a recursion launch: 3 carry
+    """(E-ring slots, dynamic shared bytes) of a recursion launch: 4 carry
     rows of S x (W + 2) floats (padded to 16 bytes), then as many slots of
     one E row (C x W floats) and one 8-int scalar row as fit, at most
     RING_MAX; 0 slots (E read from device memory) where fewer than 3 fit."""
-    carry = (3 * S * (W + 2) + 3) // 4 * 16
+    carry = (4 * S * (W + 2) + 3) // 4 * 16
     row = C * W * 4 + 32
     k = min(RING_MAX, (SMEM_LIMIT - carry) // row) if carry < SMEM_LIMIT else 0
     k = 0 if k < 3 else k
@@ -97,10 +99,11 @@ def emission_config(W: int) -> tuple[int, int, int, int]:
 
 def backward_work_floats(B: int, Dp: int, S: int, W: int, G: int = 0,
                          n_edges: int = 0) -> int:
-    """Floats of the backward workspace: b (B, Dp, S, W) from the recursion
-    and, at stage 4 (G window groups), the window-group sums (B, Dp, G, W)
-    and the per-edge lane sums (B, Dp, n_edges) of the epilogue."""
-    return B * Dp * (S * W + G * W + n_edges)
+    """Floats of the backward workspace: offB (B, Dp) f64 (2 floats each),
+    b (B, Dp, S, W) from the recursion and, at stage 4 (G window groups),
+    the window-group sums (B, Dp, G, W) and the per-edge lane sums (B, Dp,
+    n_edges) of the epilogue."""
+    return B * Dp * (2 + S * W + G * W + n_edges)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +211,20 @@ def _valid(dsd, d, d_last, lane):
     return ok & (d <= d_last)[:, None], xmy
 
 
-def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tensor:
-    """Plain version of ``forward_sm3``."""
+def _shift_of(m: torch.Tensor) -> torch.Tensor:
+    """A row's maximum -> the shift taken from it: 0.0 where the row holds
+    no cell above SHIFT_FLOOR (csrc/fb_sm3.cu shift_of)."""
+    return torch.where(m > SHIFT_FLOOR, m, 0.0)
+
+
+def _row_max(v: torch.Tensor) -> torch.Tensor:
+    """(B, S, W) -> (B,) maximum over the states and lanes."""
+    return v.amax(dim=(1, 2))
+
+
+def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar):
+    """Plain version of ``forward_sm3``: the kernel's steps in its order,
+    offsets included (see ``forward_sm3``)."""
     B, _De, _C, W = E.shape
     S = start.shape[1]
     Dp = diag_scalars.shape[1] - 1
@@ -218,12 +233,18 @@ def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.T
     lane = torch.arange(W, device=dev)
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=dev)
     F = torch.empty((B, Dp, S, W), dtype=torch.float32, device=dev)
+    offF = torch.empty((B, Dp), dtype=torch.float64, device=dev)
+    off = torch.zeros(B, dtype=torch.float64, device=dev)
     f1, f2 = neg, neg
+    # the maxima of rows d - 1 and d - 2 as stored, and the last shift
+    m1 = m2 = torch.full((B,), NEG_INF, dtype=torch.float32, device=dev)
+    sh_last = torch.zeros(B, dtype=torch.float32, device=dev)
     for d in range(Dp):
         dsd = diag_scalars[:, d, 0, :]
         valid, _xmy = _valid(dsd, d, d_last, lane)
         if d == 0:
-            cur = torch.where(valid[:, None, :], start[:, :, None], NEG_INF)
+            acc = start[:, :, None].expand(B, S, W)
+            sh = _shift_of(start.amax(dim=1))
         else:
             sL = dsd[:, DS_FL]
             srcs = (_shift(f1, sL), _shift(f2, dsd[:, DS_FM]), _shift(f1, sL + 1))
@@ -232,10 +253,16 @@ def forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.T
             for src, frm, to, chans, scal in rows:
                 val = _add_tp(srcs[src][:, frm] + _esum(Ed, chans), tp_scalar, scal)
                 acc[to] = ladd(acc[to], val)
-            cur = torch.where(valid[:, None, :], torch.stack(acc, dim=1), NEG_INF)
+            acc = torch.stack(acc, dim=1)
+            sh = torch.where((m2 > SHIFT_FLOOR) & (d <= d_last), m2 - sh_last, 0.0)
+        cur = torch.where(valid[:, None, :], acc - sh[:, None, None], NEG_INF)
+        off = off + sh.double()
         F[:, d] = cur
-        f2, f1 = f1, cur
-    return F
+        offF[:, d] = off
+        f2, f1 = f1 - sh[:, None, None], cur
+        m2, m1 = m1, _row_max(cur)
+        sh_last = sh
+    return F, offF
 
 
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
@@ -324,12 +351,13 @@ def pgroup_masks(pgroups, n_edges: int, stages: int) -> list[int]:
     return masks
 
 
-def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
+def backward_sm3_ref(edges, match_state: int, E, F, offF, diag_scalars, d_last, end,
                      tp_scalar, stages: int = 3, wgroups=None, pstates=None,
                      pgroups=None):
-    """Plain version of ``backward_sm3``.  At stage 4 the EM tallies sum in
-    the JAX kernel's order: per diagonal the sum over lanes, then the sum
-    over diagonals from the last to the first."""
+    """Plain version of ``backward_sm3``: the kernels' steps in their order,
+    offsets included.  At stage 4 the EM tallies sum in the JAX kernel's
+    order: per diagonal the sum over lanes, then the sum over diagonals from
+    the last to the first."""
     B, De, _C, W = E.shape
     S = end.shape[1]
     Dp = F.shape[1]
@@ -358,6 +386,12 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         stats = torch.zeros((B, STATS_LANES), dtype=torch.float32, device=dev)
     elif stages != 3:
         raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
+    zero = torch.zeros(B, dtype=torch.float32, device=dev)
+    off = torch.zeros(B, dtype=torch.float64, device=dev)   # offB[d + 1]
+    sh_end = _shift_of(end.amax(dim=1))
+    m1 = m2 = torch.full((B,), NEG_INF, dtype=torch.float32, device=dev)
+    sh_last = zero
+    d_top = torch.clamp_max(d_last, Dp - 1)
     b1, b2 = neg, neg
     for d in range(Dp - 1, -1, -1):
         dsd = diag_scalars[:, d, 0, :]
@@ -375,11 +409,15 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         for src, frm, to, chans, scal in rows:
             val = bs[src][:, to] + _esum(es[src], chans)
             acc[frm] = ladd(acc[frm], _add_tp(val, tp_scalar, scal))
-        cur = torch.stack(acc, dim=1)
-        at_end = (d == d_last)[:, None, None]
-        cur = torch.where(at_end, end[:, :, None], cur)
-        cur = torch.where(valid[:, None, :], cur, NEG_INF)
+        at_end = d == d_last
+        sh = torch.where(at_end, sh_end,
+                         torch.where(m2 > SHIFT_FLOOR, m2 - sh_last, 0.0))
+        cur = torch.where(at_end[:, None, None], end[:, :, None], torch.stack(acc, dim=1))
+        cur = torch.where(valid[:, None, :], cur - sh[:, None, None], NEG_INF)
+        off_d = off + sh.double()
 
+        # the total relative to offF[d] + offB[d]: the correction through
+        # diagonal d + 1 adds the f32 difference of its offsets
         Fd = F[:, d]
         vmask = torch.where(valid, 0.0, NEG_INF)[:, None, :]
         t1 = _lse_rows(Fd + cur + vmask)
@@ -388,9 +426,12 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
         for _src, frm, to, chans, scal in mid_rows:
             val = Fm1[:, frm] + _esum(E1, chans)
             c[to] = ladd(c[to], _add_tp(val, tp_scalar, scal))
-        t2 = _lse_rows(torch.stack(c, dim=1) + b1)
+        has_b1 = d + 1 <= d_top
+        dv2 = (zero if d < 1 else torch.where(
+            has_b1, ((offF[:, d - 1] - offF[:, d]) + (off - off_d)).float(), 0.0))
+        t2 = _lse_rows(torch.stack(c, dim=1) + b1 + dv2[:, None, None])
         total = ladd(t1, t2) if 1 <= d < Dp - 1 else t1
-        T[:, d] = total
+        T[:, d] = ((total.double() + offF[:, d]) + off_d).float()
 
         # one channel per listed state (the match state alone by default),
         # masked to x > 0 and y > 0; edge groups fill p in _em_tallies
@@ -400,31 +441,41 @@ def backward_sm3_ref(edges, match_state: int, E, F, diag_scalars, d_last, end,
             p = torch.exp(torch.clamp_max(Fd[:, m] + cur[:, m] - total[:, None], 0.0))
             Pc[:, d, c] = torch.where(ok, p, 0.0)
         if stages == 4:
-            _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, E[:, d],
-                        tp_scalar, d_last, exits, gacc, stats,
+            dF = tuple(zero if d < k else (offF[:, d - k] - offF[:, d]).float()
+                       for k in (1, 2))
+            _em_tallies(rows, wgroups, d, dsd, valid, cur, total, T[:, d], F, dF,
+                        E[:, d], tp_scalar, d_last, exits, gacc, stats,
                         pgroups, Pc[:, d] if pgroups is not None else None)
-        b2, b1 = b1, cur
+        b2, b1 = b1 - sh[:, None, None], cur
+        m2, m1 = m1, _row_max(cur)
+        sh_last = sh
+        off = off_d
     if stages == 4:
         return P, T, exits, gacc, stats
     return P, T
 
 
-def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, Ed, tp_scalar,
-                d_last, exits, gacc, stats, pgroups=None, p_d=None) -> None:
+def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, total_abs, F, dF, Ed,
+                tp_scalar, d_last, exits, gacc, stats, pgroups=None, p_d=None) -> None:
     """Stage-4 tallies of diagonal d (ops/pallas_fb.py:559-611), in place:
     per-edge posteriors pe = exp(min(F_src[frm] + b[to] + E + tp - total, 0))
     over the band cells of d >= 1, summed over lanes into the stats lanes;
     the window groups' sums join the (B, G, W) tally, which leaves lane W-1
     as exits[d] and shifts right by one lane where the x-window steps
-    (DS_XS[d] == 1).  The likelihood lane adds total[d] for 1 <= d <= d_last.
-    With ``pgroups``, channel c of p_d (B, P, W), zeroed by the caller, sums
-    the posteriors of the edges of group c in edge order (:579-599)."""
+    (DS_XS[d] == 1).  ``total`` and ``cur`` (b[d]) are relative to offF[d]
+    + offB[d]; F[d - 1] and F[d - 2] add ``dF``, the f32 differences of
+    their offsets from offF[d].  The likelihood lane adds the absolute
+    ``total_abs[d]`` for 1 <= d <= d_last.  With ``pgroups``, channel c of
+    p_d (B, P, W), zeroed by the caller, sums the posteriors of the edges of
+    group c in edge order (:579-599)."""
     B, S, W = cur.shape
     neg = torch.full((B, S, W), NEG_INF, dtype=torch.float32, device=cur.device)
     Fm1 = F[:, d - 1] if d >= 1 else neg
     Fm2 = F[:, d - 2] if d >= 2 else neg
     sfL = dsd[:, DS_FL]
-    srcs = (_shift(Fm1, sfL), _shift(Fm2, dsd[:, DS_FM]), _shift(Fm1, sfL + 1))
+    dF1, dF2 = (x[:, None, None] for x in dF)
+    srcs = (_shift(Fm1, sfL) + dF1, _shift(Fm2, dsd[:, DS_FM]) + dF2,
+            _shift(Fm1, sfL + 1) + dF1)
     em_ok = valid & (d >= 1)
     pg = [torch.zeros((B, W), dtype=torch.float32, device=cur.device) for _ in wgroups]
     for ei, (src, frm, to, chans, scal) in enumerate(rows):
@@ -439,7 +490,7 @@ def _em_tallies(rows, wgroups, d, dsd, valid, cur, total, F, Ed, tp_scalar,
             if ei in members:
                 p_d[:, c] += pe
     lik_ok = (d >= 1) & (d <= d_last)
-    stats[:, LIK_LANE] += torch.where(lik_ok, total, 0.0)
+    stats[:, LIK_LANE] += torch.where(lik_ok, total_abs, 0.0)
     step = (dsd[:, DS_XS] == 1)[:, None]
     for g in range(len(wgroups)):
         gnew = gacc[:, g] + pg[g]
@@ -530,13 +581,24 @@ def emissions_sm3(x0, yr0, xarr, evr, W: int, Dp: int) -> torch.Tensor:
     return E
 
 
-def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tensor:
+def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar):
     """Banded forward recursion over anti-diagonals, generic over the edge
     table: F[d][to] = ladd over edges of F_src[frm] + E channels + scalar
     terms, with the lower/upper sources F[d-1] shifted by DS_FL / DS_FL+1,
     the middle source F[d-2] shifted by DS_FM, cells outside [xmyL, xmyR]
-    or past d_last at NEG_INF and the start vector at d = 0.  Returns
-    F (B, Dp, S, W).  Replaces ops/pallas_fb.forward_sm3 (nh = 1)."""
+    or past d_last at NEG_INF and the start vector at d = 0.  Replaces
+    ops/pallas_fb.forward_sm3 (nh = 1).
+
+    Returns (F (B, Dp, S, W) f32, offF (B, Dp) f64): row d of F is stored
+    relative to offF[b, d], so that the absolute log value is F + offF.
+    Each step subtracts a shift from the new row and from the row before it
+    (the middle source of the next step), and adds it to the problem's
+    offset: at d = 0 the maximum of the start vector, at d = 1 nothing, from
+    d = 2 on the maximum of row d - 2 as stored less the previous shift, so
+    that offF[d] is the absolute maximum of row d - 2; a maximum at or below
+    SHIFT_FLOOR (no cell) gives 0.0.  The values F holds stay near 0.0,
+    where f32 resolves them to 6e-8 of their size, however long the problem
+    (absolute values reach the job's log-likelihood)."""
     if not _on_cuda(edges, E, diag_scalars, d_last, start, tp_scalar):
         return forward_sm3_ref(edges, E, diag_scalars, d_last, start, tp_scalar)
     B, De, C, W = E.shape
@@ -552,25 +614,35 @@ def forward_sm3(edges, E, diag_scalars, d_last, start, tp_scalar) -> torch.Tenso
     _check_edges(edges, S)
     _check_width(W)
     F = torch.empty((B, Dp, S, W), dtype=torch.float32, device=E.device)
+    offF = torch.empty((B, Dp), dtype=torch.float64, device=E.device)
     _launch("forward", "fb_forward", E.device,
             _p(E), _p(diag_scalars), _p(d_last), _p(start), _p(tp_scalar),
-            _p(edges), _p(F), B, Dp, De, C, S, W, tp_scalar.shape[1],
+            _p(edges), _p(F), _p(offF), B, Dp, De, C, S, W, tp_scalar.shape[1],
             edges.shape[0], Dp + 1)
-    return F
+    return F, offF
 
 
-def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
+def backward_sm3(edges, match_state: int, E, F, offF, diag_scalars, d_last, end,
                  tp_scalar, stages: int = 3, wgroups=None, pstates=None,
                  pgroups=None):
-    """Backward pass (on the card: the recursion kernel, which writes b to a
-    workspace of ``backward_work_floats``, then the epilogue kernel, and at
-    stage 4 the carry kernel).  Stage 3: the reverse recursion from b[d+1] /
-    b[d+2] with E[d+1] / E[d+2] (E shifted with a 0.0 fill), the end vector
-    injected at d_last, the per-diagonal total lse(F*b) ladd the
-    match-through-diagonal correction, and the match posterior
-    exp(min(F + b - total, 0)) masked to x > 0, y > 0.  Returns
+    """Backward pass (on the card: the recursion kernel, which writes b and
+    its offsets to a workspace of ``backward_work_floats``, then the
+    epilogue kernel, and at stage 4 the carry kernel).  Stage 3: the reverse
+    recursion from b[d+1] / b[d+2] with E[d+1] / E[d+2] (E shifted with a
+    0.0 fill), the end vector injected at d_last, the per-diagonal total
+    lse(F*b) ladd the match-through-diagonal correction, and the match
+    posterior exp(min(F + b - total, 0)) masked to x > 0, y > 0.  Returns
     (p (B, Dp, W), totals (B, Dp)).  Replaces ops/pallas_fb.backward_sm3
     at stages <= 3, nh = 1.
+
+    ``F`` and ``offF`` are ``forward_sm3``'s (an absolute F with offF 0.0
+    works too).  b is kept relative to offsets offB as F is (the end vector's
+    maximum at d_last, then the maximum of row d + 2 less the previous
+    shift).  Each diagonal's total and posteriors are formed from F[d] +
+    b[d] relative to offF[d] + offB[d]; the terms of other diagonals (F[d-1],
+    F[d-2], b[d+1]) add the f32 differences of their offsets from these.
+    ``totals`` holds the absolute total, summed in f64 as total + offF[d] +
+    offB[d] and then stored as f32, as does the likelihood lane.
 
     Stage 4 adds the EM tallies of ops/pallas_fb.backward_sm3 (stages=4,
     ``wgroups``, 1-4 tuples of edge indices; the threeState E-step's one
@@ -597,8 +669,8 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     pairwiseAligner.c:407-424)."""
     if stages not in (3, 4):
         raise ValueError(f"stages={stages}: the port runs stage 3 or 4")
-    if not _on_cuda(edges, E, F, diag_scalars, d_last, end, tp_scalar):
-        return backward_sm3_ref(edges, match_state, E, F, diag_scalars,
+    if not _on_cuda(edges, E, F, offF, diag_scalars, d_last, end, tp_scalar):
+        return backward_sm3_ref(edges, match_state, E, F, offF, diag_scalars,
                                 d_last, end, tp_scalar, stages, wgroups, pstates,
                                 pgroups)
     B, De, C, W = E.shape
@@ -608,6 +680,7 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
     if De < Dp + 2:
         raise ValueError(f"E has {De} rows, needs >= Dp + 2 = {Dp + 2}")
     _check(F, "F", torch.float32, (B, Dp, S, W))
+    _check(offF, "offF", torch.float64, (B, Dp))
     _check(diag_scalars, "diag_scalars", torch.int32, (B, Dp + 1, 1, 8))
     _check(d_last, "d_last", torch.int32, (B,))
     _check(end, "end", torch.float32, (B, S))
@@ -629,7 +702,7 @@ def backward_sm3(edges, match_state: int, E, F, diag_scalars, d_last, end,
         pmask = pstate_mask(pstates, S, stages)
         P = torch.empty((B, Dp, len(pstates), W), dtype=torch.float32, device=dev)
     T = torch.empty((B, Dp), dtype=torch.float32, device=dev)
-    args = (_p(E), _p(F), _p(diag_scalars), _p(d_last), _p(end), _p(tp_scalar),
+    args = (_p(E), _p(F), _p(offF), _p(diag_scalars), _p(d_last), _p(end), _p(tp_scalar),
             _p(edges), _p(P), _p(T))
     n_edges = edges.shape[0]
     dims = (B, Dp, De, C, S, W, tp_scalar.shape[1], n_edges, Dp + 1)

@@ -48,6 +48,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def assert_forward_close(got, want):
+    """(F, offF) against (F, offF): F relative to its offsets within the F
+    tolerance, the offsets (sums of row maxima) exactly."""
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    assert torch.equal(got[1], want[1])
+
+
 def _pore(tmp_path, rng):
     return syn.write_pore_model(str(tmp_path / "synthetic.model"), rng)
 
@@ -83,18 +90,18 @@ def test_cuda_kernels_match_plain(W, cuda_device, tmp_path):
     edges = pp.to_device(edge_table(plan), cuda_device)
     before = dict(fk.LAUNCHES)
     E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    p, tot = fk.backward_sm3(edges, plan.match_state, E, F, b.diag_scalars, b.d_last,
-                             b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    p, tot = fk.backward_sm3(edges, plan.match_state, E, F, offF, b.diag_scalars,
+                             b.d_last, b.end, b.tp_scalar)
     torch.cuda.synchronize()
     assert all(fk.LAUNCHES[k] == before[k] + 1 for k in ("emissions", "forward", "backward"))
     assert fk.LAUNCHES["backward_em"] == before["backward_em"]
     E_ref = fk.emissions_sm3_ref(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F_ref = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    p_ref, tot_ref = fk.backward_sm3_ref(edges, plan.match_state, E, F, b.diag_scalars,
-                                         b.d_last, b.end, b.tp_scalar)
+    F_ref, offF_ref = fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    p_ref, tot_ref = fk.backward_sm3_ref(edges, plan.match_state, E, F, offF,
+                                         b.diag_scalars, b.d_last, b.end, b.tp_scalar)
     torch.testing.assert_close(E, E_ref, rtol=1e-6, atol=0)
-    torch.testing.assert_close(F, F_ref, rtol=1e-5, atol=1e-3)
+    assert_forward_close((F, offF), (F_ref, offF_ref))
     torch.testing.assert_close(p, p_ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(tot, tot_ref, rtol=1e-5, atol=1e-3)
     assert float(p.sum()) > 0.25 * float(b.d_last.sum())
@@ -120,8 +127,9 @@ def test_cuda_backward_em_matches_plain(W, cuda_device, tmp_path):
     b = pp.stack_problems(probs)
     edges = pp.to_device(edge_table(plan), cuda_device)
     E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     for groups in (pp.sm3_wgroups(plan), ((0, 1, 2), (3,), (6, 7), (4, 5))):
         before = fk.LAUNCHES["backward_em"]
         got = fk.backward_sm3(*args, stages=4, wgroups=groups)
@@ -159,8 +167,9 @@ def test_cuda_backward_wide_window_matches_plain(W, bases, cuda_device, tmp_path
     b = pp.stack_problems(probs)
     edges = pp.to_device(edge_table(plan), cuda_device)
     E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, b.diag_scalars.shape[1] - 1)
-    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     groups = pp.sm3_wgroups(plan)
     p3, tot3 = fk.backward_sm3(*args)
     got = fk.backward_sm3(*args, stages=4, wgroups=groups)
@@ -280,16 +289,17 @@ def test_cuda_generic_kernels_match_plain(name, W, cuda_device, tmp_path):
     edges = pp.to_device(edge_table(plan), cuda_device)
     fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
     before = dict(fk.LAUNCHES)
-    F = fk.forward_sm3(*fargs)
-    bargs = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(*fargs)
+    bargs = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
+             b.tp_scalar)
     p, tot = fk.backward_sm3(*bargs, pstates=pstates)
     torch.cuda.synchronize()
     mode = "backward" if pstates is None else "backward_pstates"
     assert fk.LAUNCHES["forward"] == before["forward"] + 1
     assert fk.LAUNCHES[mode] == before[mode] + 1
-    F_ref = fk.forward_sm3_ref(*fargs)
+    F_ref, offF_ref = fk.forward_sm3_ref(*fargs)
     p_ref, tot_ref = fk.backward_sm3_ref(*bargs, pstates=pstates)
-    torch.testing.assert_close(F, F_ref, rtol=1e-5, atol=1e-3)
+    assert_forward_close((F, offF), (F_ref, offF_ref))
     torch.testing.assert_close(p, p_ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(tot, tot_ref, rtol=1e-5, atol=1e-3)
     assert p.shape == ((len(cases), Dp, W) if pstates is None
@@ -408,11 +418,11 @@ def _check_pgroups(plan, b, W, pgroup_sets):
 
     dev = b.E.device
     edges = pp.to_device(edge_table(plan), dev)
-    F = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    torch.testing.assert_close(F, fk.forward_sm3_ref(edges, b.E, b.diag_scalars, b.d_last,
-                                                     b.start, b.tp_scalar),
-                               rtol=1e-5, atol=1e-3)
-    args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    assert_forward_close((F, offF), fk.forward_sm3_ref(edges, b.E, b.diag_scalars,
+                                                       b.d_last, b.start, b.tp_scalar))
+    args = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     groups = pp.sm3_wgroups(plan)
     sets = (_to_state_pgroups(plan), tuple((e,) for e in (0, 2, 4, 5, 8, 9, 11, 12)))
     for pgroups in sets[:pgroup_sets]:
@@ -532,15 +542,15 @@ def test_cuda_ring_edges_match_plain(Dp, cuda_device, tmp_path):
     assert int(b.d_last.min()) < 12 < int(b.d_last.max())
     edges = pp.to_device(edge_table(plan), cuda_device)
     E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, Dp)
-    F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    args = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     groups = pp.sm3_wgroups(plan)
     p3, tot3 = fk.backward_sm3(*args)
     got = fk.backward_sm3(*args, stages=4, wgroups=groups)
     torch.cuda.synchronize()
-    torch.testing.assert_close(F, fk.forward_sm3_ref(edges, E, b.diag_scalars, b.d_last,
-                                                     b.start, b.tp_scalar),
-                               rtol=1e-5, atol=1e-3)
+    assert_forward_close((F, offF), fk.forward_sm3_ref(edges, E, b.diag_scalars,
+                                                       b.d_last, b.start, b.tp_scalar))
     want = fk.backward_sm3_ref(*args, 4, groups)
     for p, tot in ((p3, tot3), got[:2]):
         torch.testing.assert_close(p, want[0], rtol=0, atol=1e-4)
@@ -633,14 +643,15 @@ def test_cuda_em_stage4_configs_match_plain(machine, groups, cuda_device, tmp_pa
     assert (wgroups, pgroups) == groups
     edges = pp.to_device(edge_table(plan), cuda_device)
     fargs = (edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    F = fk.forward_sm3(*fargs)
-    args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(*fargs)
+    args = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     kernel = "backward_em" if pgroups is None else "backward_pgroups"
     before = fk.LAUNCHES[kernel]
     got = fk.backward_sm3(*args, stages=4, wgroups=wgroups, pgroups=pgroups)
     torch.cuda.synchronize()
     assert fk.LAUNCHES[kernel] == before + 1
-    torch.testing.assert_close(F, fk.forward_sm3_ref(*fargs), rtol=1e-5, atol=1e-3)
+    assert_forward_close((F, offF), fk.forward_sm3_ref(*fargs))
     want = fk.backward_sm3_ref(*args, 4, wgroups, None, pgroups)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)

@@ -120,7 +120,8 @@ def test_backward_pgroups_plain_matches_pallas(groups, window_case):
         c["jplan"], b.E, c["Fpad"], b.diag_scalars, b.d_last, b.end, b.tp_scalar, kd=KD,
         stages=4, interpret=True, pgroups=pgroups)
     edges = torch.from_numpy(edge_table(plan))
-    args = (edges, plan.match_state, tb.E, c["F"], tb.diag_scalars, tb.d_last, tb.end,
+    offF = torch.zeros(c["F"].shape[:2], dtype=torch.float64)   # JAX's F is absolute
+    args = (edges, plan.match_state, tb.E, c["F"], offF, tb.diag_scalars, tb.d_last, tb.end,
             tb.tp_scalar)
     got = fk.backward_sm3(*args, stages=4, wgroups=tpp.sm3_wgroups(plan), pgroups=pgroups)
     g_p, g_tot, g_exits, g_gacc, g_stats = (t.numpy() for t in got)

@@ -87,8 +87,10 @@ def test_backward_stage4_plain_matches_pallas(W, jax_buckets):
         stages=4, interpret=True)
     tb = tem.bucket_from_jax(jb, CPU)
     edges = torch.from_numpy(edge_table(tb.plan))
+    # JAX's F is absolute: its offsets are 0.0
+    offF = torch.zeros((tb.batch.d_last.shape[0], Dp), dtype=torch.float64)
     got = fk.backward_sm3(edges, tb.plan.match_state, torch.from_numpy(np.array(E[:, :Dp + 2])),
-                          torch.from_numpy(np.array(Fpad[:, KD:])), tb.batch.diag_scalars,
+                          torch.from_numpy(np.array(Fpad[:, KD:])), offF, tb.batch.diag_scalars,
                           tb.batch.d_last, tb.batch.end, tb.batch.tp_scalar, stages=4,
                           wgroups=tpp.sm3_wgroups(tb.plan))
     g_p, g_tot, g_exits, g_gacc, g_stats = (t.numpy() for t in got)

@@ -101,17 +101,20 @@ def test_emissions_plain_matches_pallas(case):
 def test_forward_plain_matches_pallas(case):
     tb = case["prob"]
     E = torch.from_numpy(case["E"])
-    F = fk.forward_sm3(_edges(case), E, tb.diag_scalars, tb.d_last, tb.start,
-                       tb.tp_scalar).numpy()
-    np.testing.assert_allclose(F, case["F"], atol=F_ATOL, rtol=F_RTOL)
+    F, offF = fk.forward_sm3(_edges(case), E, tb.diag_scalars, tb.d_last, tb.start,
+                             tb.tp_scalar)
+    # F is stored relative to its per-diagonal offsets: JAX's is absolute
+    F_abs = F.double() + offF[:, :, None, None]
+    np.testing.assert_allclose(F_abs.numpy(), case["F"], atol=F_ATOL, rtol=F_RTOL)
     # cells outside the band are NEG_INF exactly, as in the TPU kernel
-    np.testing.assert_array_equal(F <= fk.NEG_INF, case["F"] <= fk.NEG_INF)
+    np.testing.assert_array_equal(F.numpy() <= fk.NEG_INF, case["F"] <= fk.NEG_INF)
 
 
 def test_backward_plain_matches_pallas(case):
     tb = case["prob"]
     E, F = torch.from_numpy(case["E"]), torch.from_numpy(case["F"])
-    p, tot = fk.backward_sm3(_edges(case), case["plan"].match_state, E, F,
+    offF = torch.zeros(F.shape[:2], dtype=torch.float64)   # JAX's F is absolute
+    p, tot = fk.backward_sm3(_edges(case), case["plan"].match_state, E, F, offF,
                              tb.diag_scalars, tb.d_last, tb.end, tb.tp_scalar)
     np.testing.assert_allclose(p.numpy(), case["p"], atol=P_ATOL, rtol=0)
     np.testing.assert_allclose(tot.numpy(), case["tot"], atol=F_ATOL, rtol=F_RTOL)

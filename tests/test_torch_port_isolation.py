@@ -316,7 +316,7 @@ def test_copies_name_their_source():
             if f"Copied from ``cpecan_signal_tpu/{rel}``" in doc:
                 copies.append(rel)
                 assert os.path.exists(os.path.join(jax_root, rel)), rel
-    assert len(copies) == 21, copies
+    assert len(copies) == 23, copies
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):

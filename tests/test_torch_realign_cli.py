@@ -18,11 +18,12 @@ one record of each set on the reverse strand of its second sequence.
   * (g) the host f64 routes (``--engine host``, ``--matchGamma``,
     ``realign_record``, cli/em's ``engine="host"`` and ``update_band``)
     against the JAX CLIs' host routes: CIGARs equal, tallies and models
-    within rtol 1e-9; SIGALIGN_COORDINATOR still raises NotImplementedError
-    naming its ROADMAP item.
+    within rtol 1e-9; cli/em under SIGALIGN_COORDINATOR (one rank here;
+    two in test_torch_distributed.py) gives one process's model bit for bit.
 """
 
 import io
+import socket
 
 import numpy as np
 import pytest
@@ -173,7 +174,8 @@ def test_unported_routes_raise(tmp_path, monkeypatch, capsys, cpu_platform):
     give: ``--engine host`` CIGARs (with and without ``--matchGamma``, which
     both accept and neither reads) and its ``--outputExpectations`` tallies
     within rtol 1e-9, ``realign_record`` alone; several processes
-    (SIGALIGN_COORDINATOR) still raise, naming their ROADMAP item."""
+    (SIGALIGN_COORDINATOR, here one rank of a gloo group) no longer raise:
+    cli/em gives the model one process gives, bit for bit."""
     fasta, cigars = write_records(tmp_path, 2, 60, seed=1, reverse=(1,))
     for extra in (["--engine", "host"], ["--engine", "host", "--matchGamma", "0.5"]):
         argv = [fasta, "--constraintDiagonalTrim", "2", *extra]
@@ -199,9 +201,24 @@ def test_unported_routes_raise(tmp_path, monkeypatch, capsys, cpu_platform):
     cig = str(tmp_path / "one.cig")
     with open(cig, "w") as fh:
         fh.write(cigars)
-    monkeypatch.setenv("SIGALIGN_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Several processes'"):
-        tem.expectation_maximisation(cig, [fasta], str(tmp_path / "m.hmm"), iterations=1)
+    one = tem.expectation_maximisation(cig, [fasta], str(tmp_path / "m1.hmm"),
+                                       iterations=1, trials=1)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("SIGALIGN_COORDINATOR", f"localhost:{port}")
+    monkeypatch.setenv("SIGALIGN_NUM_PROCS", "1")
+    monkeypatch.setenv("SIGALIGN_PROC_ID", "0")
+    try:
+        ranked = tem.expectation_maximisation(cig, [fasta], str(tmp_path / "m.hmm"),
+                                              iterations=1, trials=1)
+        assert torch.distributed.is_initialized()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert np.array_equal(ranked.transitions, one.transitions)
+    assert np.array_equal(ranked.emissions, one.emissions)
+    assert ranked.likelihood == one.likelihood
 
 
 @pytest.mark.parametrize("update_band", [False, True])

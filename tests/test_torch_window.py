@@ -143,8 +143,9 @@ def test_echelon_pstates_channels():
     plan, prob = tpp.make_window_problem(sm, wb, device=CPU, ragged_right=False)
     b = tpp.stack_window_problems([prob])
     edges = torch.from_numpy(tplan.edge_table(plan))
-    F = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-    args = (edges, plan.match_state, b.E, F, b.diag_scalars, b.d_last, b.end, b.tp_scalar)
+    F, offF = fk.forward_sm3(edges, b.E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
+    args = (edges, plan.match_state, b.E, F, offF, b.diag_scalars, b.d_last, b.end,
+            b.tp_scalar)
     p_all, tot_all = fk.backward_sm3(*args, pstates=ECHELON_PSTATES)
     p_m, tot_m = fk.backward_sm3(*args)
     assert p_all.shape == (1, wb.n_diagonals, 5, wb.W)

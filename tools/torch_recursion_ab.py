@@ -43,8 +43,9 @@ threeState alignment of chip_smoke.py's 50 reads (batch_align_stream) and
 its 50 kb read (batch_align_jobs), and requires their pairs to be equal.
 The last line is a JSON object: per run and build the median ms (s for
 the end-to-end runs), the spread (max - min) / median over its times, and
-each build's median over the last build's.  A parent whose backward entry points take no
-workspace is called without one.
+each build's median over the last build's.  A parent whose recursions
+keep no offsets (its F is absolute) is called without the offF arguments,
+and its outputs are timed but not compared.
 """
 
 from __future__ import annotations
@@ -77,38 +78,44 @@ W, DP, B = 128, 4096, 64
 PSTATES_DP = 1024
 WIDE_W, WIDE_DP = 1024, 512   # the emissions at the widest window
 SMALL_DP, SMALL_B = 1024, 16   # an E that fits in L2 (25 MB)
-WORK_ENTRIES = ("fb_backward_sm3", "fb_backward_sm3_em", "fb_backward_sm3_pgroups")
+OFFSET_ENTRIES = {"fb_forward": 7, "fb_backward_sm3": 2, "fb_backward_sm3_em": 2,
+                  "fb_backward_sm3_pgroups": 2}   # entry -> index of its offF argument
 
 
-class NoWorkspaceLib:
-    """A library whose backward entry points predate the workspace: the
-    wrapper's workspace pointer (the argument before the device) is dropped."""
+class NoOffsetLib:
+    """A library whose recursions predate the per-diagonal offsets: the
+    wrappers' offF argument is dropped (its forward writes absolute F and
+    leaves offF as allocated; its backward reads no offF)."""
 
     def __init__(self, lib):
         self.lib = lib
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if name not in WORK_ENTRIES:
+        if name not in OFFSET_ENTRIES:
             return fn
-        return lambda *args: fn(*args[:-3], *args[-2:])
+        i = OFFSET_ENTRIES[name]
+        return lambda *args: fn(*args[:i], *args[i + 1:])
 
 
 def bind_parent(so: Path, text: str):
-    """Bind an earlier library: the entry points its source defines, the
-    backward ones without the workspace if it takes none."""
+    """Bind an earlier library: the entry points its source defines, without
+    the offF arguments if its recursions keep no offsets."""
     from cpecan_signal_tpu_torch.ops import _build
 
     names = [n for n in _build._SIGNATURES if n in text]
-    if "float* work" in text:
+    if "double* offF" in text:
         return _build.bind(so, names)
     lib = ctypes.CDLL(str(so))
     for name in names:
         argtypes, restype = _build._SIGNATURES[name]
         fn = getattr(lib, name)
-        fn.argtypes = argtypes[:-3] + argtypes[-2:] if name in WORK_ENTRIES else argtypes
+        if name in OFFSET_ENTRIES:
+            i = OFFSET_ENTRIES[name]
+            argtypes = argtypes[:i] + argtypes[i + 1:]
+        fn.argtypes = argtypes
         fn.restype = restype
-    return NoWorkspaceLib(lib)
+    return NoOffsetLib(lib)
 
 
 def build_variants(tmp: Path, names, parent: Path | None = None) -> dict:
@@ -336,7 +343,7 @@ def main() -> int:
         edges = pp.to_device(edge_table(plan), device)
         E = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, DP)
         F = fk.forward_sm3(edges, E, b.diag_scalars, b.d_last, b.start, b.tp_scalar)
-        bargs = (edges, plan.match_state, E, F, b.diag_scalars, b.d_last, b.end,
+        bargs = (edges, plan.match_state, E, *F, b.diag_scalars, b.d_last, b.end,
                  b.tp_scalar)
         edges5 = pp.to_device(edge_table(plan5), device)
         F5 = fk.forward_sm3(edges5, b5.E, b5.diag_scalars, b5.d_last, b5.start,
@@ -350,13 +357,13 @@ def main() -> int:
 
         def emissions_forward():
             e = fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, DP)
-            return e, fk.forward_sm3(edges, e, b.diag_scalars, b.d_last, b.start,
-                                     b.tp_scalar)
+            return e, *fk.forward_sm3(edges, e, b.diag_scalars, b.d_last, b.start,
+                                      b.tp_scalar)
 
         def emissions_forward_small():
             e = fk.emissions_sm3(bs.x0, bs.yr0, bs.xarr, bs.evr, W, SMALL_DP)
-            return e, fk.forward_sm3(edges, e, bs.diag_scalars, bs.d_last, bs.start,
-                                     bs.tp_scalar)
+            return e, *fk.forward_sm3(edges, e, bs.diag_scalars, bs.d_last, bs.start,
+                                      bs.tp_scalar)
 
         runs = {
             "emissions": lambda: (fk.emissions_sm3(b.x0, b.yr0, b.xarr, b.evr, W, DP),),
@@ -364,26 +371,26 @@ def main() -> int:
             "emissionsW1024": lambda: (fk.emissions_sm3(*ew, WIDE_W, WIDE_DP),),
             "emissions_forward": emissions_forward,
             "emissions_forward_small": emissions_forward_small,
-            "forward": lambda: (fk.forward_sm3(edges, E, b.diag_scalars, b.d_last,
-                                               b.start, b.tp_scalar),),
-            "forward5": lambda: (fk.forward_sm3(edges5, b5.E, b5.diag_scalars, b5.d_last,
-                                                b5.start, b5.tp_scalar),),
-            "forwardE": lambda: (fk.forward_sm3(edgesE, bE.E, bE.diag_scalars, bE.d_last,
-                                                bE.start, bE.tp_scalar),),
-            "forwardV": lambda: (fk.forward_sm3(edgesV, bV.E, bV.diag_scalars, bV.d_last,
-                                                bV.start, bV.tp_scalar),),
-            "stage3V": lambda: fk.backward_sm3(edgesV, planV.match_state, bV.E, FV,
+            "forward": lambda: fk.forward_sm3(edges, E, b.diag_scalars, b.d_last,
+                                              b.start, b.tp_scalar),
+            "forward5": lambda: fk.forward_sm3(edges5, b5.E, b5.diag_scalars, b5.d_last,
+                                               b5.start, b5.tp_scalar),
+            "forwardE": lambda: fk.forward_sm3(edgesE, bE.E, bE.diag_scalars, bE.d_last,
+                                               bE.start, bE.tp_scalar),
+            "forwardV": lambda: fk.forward_sm3(edgesV, bV.E, bV.diag_scalars, bV.d_last,
+                                               bV.start, bV.tp_scalar),
+            "stage3V": lambda: fk.backward_sm3(edgesV, planV.match_state, bV.E, *FV,
                                                bV.diag_scalars, bV.d_last, bV.end,
                                                bV.tp_scalar),
             "stage3": lambda: fk.backward_sm3(*bargs),
             "stage4": lambda: fk.backward_sm3(*bargs, stages=4,
                                               wgroups=pp.sm3_wgroups(plan)),
             "pgroups": lambda: fk.backward_sm3(
-                edges5, plan5.match_state, b5.E, F5, b5.diag_scalars, b5.d_last, b5.end,
+                edges5, plan5.match_state, b5.E, *F5, b5.diag_scalars, b5.d_last, b5.end,
                 b5.tp_scalar, stages=4, wgroups=pp.sm3_wgroups(plan5),
                 pgroups=_to_state_pgroups(plan5)),
             "pstates": lambda: fk.backward_sm3(
-                edgesE, planE.match_state, bE.E, FE, bE.diag_scalars, bE.d_last, bE.end,
+                edgesE, planE.match_state, bE.E, *FE, bE.diag_scalars, bE.d_last, bE.end,
                 bE.tp_scalar, pstates=chip_smoke.ECHELON_PSTATES),
         }
         if args.runs:
@@ -398,6 +405,10 @@ def main() -> int:
             outs[name] = {k: run() for k, run in runs.items()}
         torch.cuda.synchronize()
         for name in builds[1:]:
+            if isinstance(libs[name], NoOffsetLib):
+                print("check parent: its recursions keep no offsets (absolute F); "
+                      "timed only", flush=True)
+                continue
             for k in runs:
                 a, u = outs["as_built"][k], outs[name][k]
                 same = same_outputs(a, u)

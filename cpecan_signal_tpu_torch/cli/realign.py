@@ -33,6 +33,7 @@ from ..io.fasta import read_fasta, reverse_complement
 from ..models.params import AlignmentParams
 from ..models.state_machines import bind_symbol_sequences, make_symbol_sm5
 from ..utils.device import resolve_device
+from ..utils.observability import timed
 
 def load_sequences(paths: list[str]) -> dict[str, str]:
     seqs: dict[str, str] = {}
@@ -180,10 +181,13 @@ def stage_record_head(rec: CigarRecord, seqs: dict[str, str],
 def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
                   anchors_all, params: AlignmentParams,
                   rescore: str | None = None, rescore_original: bool = False,
-                  split_indels_longer_than: int = -1) -> list[CigarRecord]:
+                  split_indels_longer_than: int = -1,
+                  timing: dict | None = None) -> list[CigarRecord]:
     """realign_record's output stage: AMAP reweight + consistency filter,
     rescoring, aligned-pairs -> CIGAR, coordinate restore
-    (cPecanRealign.c:591-645)."""
+    (cPecanRealign.c:591-645).  ``timing`` gains the seconds of the
+    reweight ("tail.reweight"), the filter and its sort ("tail.filter") and
+    the rest ("tail.cigar")."""
     flip1, flip2 = not rec.strand1, not rec.strand2
     shift1 = rec.start1 if rec.strand1 else rec.end1
     shift2 = rec.start2 if rec.strand2 else rec.end2
@@ -204,37 +208,40 @@ def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
                             for x, y in anchors_all.tolist()], dtype=np.int64
                            ).reshape(-1, 3)
     else:
-        pairs = amap.reweight_aligned_pairs(pairs, len(sub_x), len(sub_y),
-                                            params.gap_gamma)
-        pairs = amap.filter_pairs_to_ordered(pairs)
-        pairs = pairs[np.lexsort((pairs[:, 2], pairs[:, 1]))] if len(pairs) else pairs
+        with timed("tail.reweight", timing):
+            pairs = amap.reweight_aligned_pairs(pairs, len(sub_x), len(sub_y),
+                                                params.gap_gamma)
+        with timed("tail.filter", timing):
+            pairs = amap.filter_pairs_to_ordered(pairs)
+            pairs = pairs[np.lexsort((pairs[:, 2], pairs[:, 1]))] if len(pairs) else pairs
 
-    if rescore == "posterior":
-        score = amap.score_by_posterior(pairs, len(sub_x), len(sub_y), False)
-    elif rescore == "posterior_ignoring_gaps":
-        score = amap.score_by_posterior(pairs, len(sub_x), len(sub_y), True)
-    elif rescore == "identity":
-        score = amap.score_by_identity(sub_x, sub_y, pairs, False)
-    elif rescore == "identity_ignoring_gaps":
-        score = amap.score_by_identity(sub_x, sub_y, pairs, True)
+    with timed("tail.cigar", timing):
+        if rescore == "posterior":
+            score = amap.score_by_posterior(pairs, len(sub_x), len(sub_y), False)
+        elif rescore == "posterior_ignoring_gaps":
+            score = amap.score_by_posterior(pairs, len(sub_x), len(sub_y), True)
+        elif rescore == "identity":
+            score = amap.score_by_identity(sub_x, sub_y, pairs, False)
+        elif rescore == "identity_ignoring_gaps":
+            score = amap.score_by_identity(sub_x, sub_y, pairs, True)
 
-    ops = amap.pairs_to_cigar_ops(pairs, len(sub_x), len(sub_y))
-    out = CigarRecord(rec.contig1, 0, e1 if not flip1 else s1, True,
-                      rec.contig2, 0, e2 if not flip2 else s2, True,
-                      score, ops)
-    # restore original coordinates/strands
-    def rebase(start, end, strand, shift, flip):
-        start += shift
-        end += shift
-        if flip:
-            return end, start, not strand
-        return start, end, strand
+        ops = amap.pairs_to_cigar_ops(pairs, len(sub_x), len(sub_y))
+        out = CigarRecord(rec.contig1, 0, e1 if not flip1 else s1, True,
+                          rec.contig2, 0, e2 if not flip2 else s2, True,
+                          score, ops)
+        # restore original coordinates/strands
+        def rebase(start, end, strand, shift, flip):
+            start += shift
+            end += shift
+            if flip:
+                return end, start, not strand
+            return start, end, strand
 
-    out.start1, out.end1, out.strand1 = rebase(0, len(sub_x), True, shift1, flip1)
-    out.start2, out.end2, out.strand2 = rebase(0, len(sub_y), True, shift2, flip2)
-    if split_indels_longer_than != -1:
-        return amap.split_long_indels(out, split_indels_longer_than)
-    return [out]
+        out.start1, out.end1, out.strand1 = rebase(0, len(sub_x), True, shift1, flip1)
+        out.start2, out.end2, out.strand2 = rebase(0, len(sub_y), True, shift2, flip2)
+        if split_indels_longer_than != -1:
+            return amap.split_long_indels(out, split_indels_longer_than)
+        return [out]
 
 
 def realign_record(rec: CigarRecord, seqs: dict[str, str],
@@ -264,17 +271,22 @@ def realign_record(rec: CigarRecord, seqs: dict[str, str],
 
 
 def record_jobs(records: list[CigarRecord], seqs: dict[str, str],
-                params: AlignmentParams, hmm: DiscreteHmm | None):
+                params: AlignmentParams, hmm: DiscreteHmm | None,
+                timing: dict | None = None):
     """Every record's head and split jobs, flattened.  Returns (heads
-    [(sub_x, sub_y, anchors_all)], spans [slice into jobs], jobs)."""
+    [(sub_x, sub_y, anchors_all)], spans [slice into jobs], jobs).
+    ``timing`` gains the seconds of the heads' staging ("head.stage") and
+    of their banding and splits ("head.split")."""
     from ..em.discrete import collect_symbol_split_jobs
 
     heads, spans, jobs = [], [], []
     for rec in records:
-        sub_x, sub_y, anchors_all, anchors, make_sm = stage_record_head(rec, seqs, params,
-                                                                        hmm)
-        rj = collect_symbol_split_jobs(make_sm, sub_x, sub_y, anchors, params,
-                                       ragged_left=True, ragged_right=True)
+        with timed("head.stage", timing):
+            sub_x, sub_y, anchors_all, anchors, make_sm = stage_record_head(rec, seqs, params,
+                                                                            hmm)
+        with timed("head.split", timing):
+            rj = collect_symbol_split_jobs(make_sm, sub_x, sub_y, anchors, params,
+                                           ragged_left=True, ragged_right=True)
         spans.append(slice(len(jobs), len(jobs) + len(rj)))
         jobs.extend(rj)
         heads.append((sub_x, sub_y, anchors_all))
@@ -290,26 +302,27 @@ def realign_records_batched(records: list[CigarRecord], seqs: dict[str, str],
     """Many CIGAR records at once: every record's split jobs in device
     buckets (engine/batch_align), then the per-record output tails
     (cPecanRealign.c:556-645).  ``timing`` gains the seconds of the heads
-    and splits ("head"), the device batch ("batch", with its own stages)
-    and the tails ("tail")."""
+    and splits ("head", with "head.stage" and "head.split"), the device
+    batch ("batch", with its own stages) and the tails ("tail", with
+    "tail.assemble" and finish_record's "tail.reweight", "tail.filter" and
+    "tail.cigar")."""
     from ..em.discrete import batched_pairs_for_records
     from ..engine.batch_align import assemble_pairs
 
-    t0 = time.perf_counter()
-    heads, spans, jobs = record_jobs(records, seqs, params, hmm)
-    t1 = time.perf_counter()
-    frags = batched_pairs_for_records(jobs, params.threshold, device=device, timing=timing)
-    t2 = time.perf_counter()
+    with timed("head", timing):
+        heads, spans, jobs = record_jobs(records, seqs, params, hmm, timing)
+    with timed("batch", timing):
+        frags = batched_pairs_for_records(jobs, params.threshold, device=device,
+                                          timing=timing)
     out = []
-    for rec, (sub_x, sub_y, anchors_all), span in zip(records, heads, spans):
-        out.append(finish_record(
-            rec, assemble_pairs(frags[span]), sub_x, sub_y, anchors_all, params,
-            rescore=rescore, rescore_original=rescore_original,
-            split_indels_longer_than=split_indels_longer_than))
-    if timing is not None:
-        for key, dt in (("head", t1 - t0), ("batch", t2 - t1),
-                        ("tail", time.perf_counter() - t2)):
-            timing[key] = timing.get(key, 0.0) + dt
+    with timed("tail", timing):
+        for rec, (sub_x, sub_y, anchors_all), span in zip(records, heads, spans):
+            with timed("tail.assemble", timing):
+                aligned = assemble_pairs(frags[span])
+            out.append(finish_record(
+                rec, aligned, sub_x, sub_y, anchors_all, params,
+                rescore=rescore, rescore_original=rescore_original,
+                split_indels_longer_than=split_indels_longer_than, timing=timing))
     return out
 
 
@@ -320,7 +333,7 @@ def record_expectations(records: list[CigarRecord], seqs: dict[str, str],
     order (the --outputExpectations worker, cPecanRealign.c:584-588)."""
     from ..em.discrete import discrete_expectations_batched
 
-    _heads, _spans, jobs = record_jobs(records, seqs, params, hmm)
+    _heads, _spans, jobs = record_jobs(records, seqs, params, hmm, timing)
     for trans, emiss, lik in discrete_expectations_batched(jobs, device=device,
                                                            timing=timing):
         acc.transitions += trans

@@ -38,6 +38,7 @@ from ..models.state_machines import (make_signal_echelon, make_signal_sm3,
                                       make_signal_sm3_hdp, make_signal_sm4,
                                       make_signal_vanilla)
 from ..utils.device import resolve_device
+from ..utils.observability import timed
 
 
 def guide_alignment(ref_seq: str, read_seq: str, trim: int) -> CigarRecord | None:
@@ -174,87 +175,88 @@ def prepare_read(ref_seq: str, npread: NanoporeRead, params: AlignmentParams,
     ``hdp_density`` a strand to its threeStateHdp density; threeStateHdp
     aligns the descaled events against the unscaled model, as the reference
     queries its HDP."""
-    trained = trained or {}
-    hdp_density = hdp_density or {}
-    if guide is None:
-        guide = guide_alignment(ref_seq, npread.twoD_read,
-                                params.constraint_diagonal_trim)
-    if guide is None:
-        return {"status": "unmapped"}
-    if sm_type == "threeStateHdp":
-        npread = npread.descale()
+    with timed("prepare_read"):
+        trained = trained or {}
+        hdp_density = hdp_density or {}
+        if guide is None:
+            guide = guide_alignment(ref_seq, npread.twoD_read,
+                                    params.constraint_diagonal_trim)
+        if guide is None:
+            return {"status": "unmapped"}
+        if sm_type == "threeStateHdp":
+            npread = npread.descale()
 
-    # the reference window on the mapped strand
-    if guide.strand1:
-        trimmed = ref_seq[guide.start1:guide.end1]
-    else:
-        trimmed = reverse_complement(ref_seq[guide.end1:guide.start1])
-    rc_trimmed = reverse_complement(trimmed)
-    t_target = trimmed if substitute is None else trimmed.replace("C", substitute)
-    c_target = rc_trimmed if substitute is None else rc_trimmed.replace("C", substitute)
+        # the reference window on the mapped strand
+        if guide.strand1:
+            trimmed = ref_seq[guide.start1:guide.end1]
+        else:
+            trimmed = reverse_complement(ref_seq[guide.end1:guide.start1])
+        rc_trimmed = reverse_complement(trimmed)
+        t_target = trimmed if substitute is None else trimmed.replace("C", substitute)
+        c_target = rc_trimmed if substitute is None else rc_trimmed.replace("C", substitute)
 
-    anchors = rebased_anchor_pairs(guide, params.constraint_diagonal_trim)
-    forward = guide.strand1
+        anchors = rebased_anchor_pairs(guide, params.constraint_diagonal_trim)
+        forward = guide.strand1
 
-    results = {"status": "ok", "n_anchors": len(anchors)}
-    end2 = min(guide.end2, len(npread.template_event_map) - 1)
-    lX_kmers = len(trimmed) - KMER_LENGTH + 1
+        results = {"status": "ok", "n_anchors": len(anchors)}
+        end2 = min(guide.end2, len(npread.template_event_map) - 1)
+        lX_kmers = len(trimmed) - KMER_LENGTH + 1
 
-    # template strand: the event map increases with read position
-    tm = npread.template_event_map
-    ev_start_t = int(tm[guide.start2])
-    ev_end_t = int(tm[end2])
-    t_events = npread.template_events[ev_start_t:ev_end_t]
-    t_anchors = remap_anchor_pairs_with_offset(anchors, tm, guide.start2)
-    if len(t_anchors):
-        ok_t = ((t_anchors[:, 0] >= 0) & (t_anchors[:, 0] < max(lX_kmers, 1))
-                & (t_anchors[:, 1] >= 0) & (t_anchors[:, 1] < max(len(t_events), 1)))
-        t_anchors = t_anchors[ok_t]
-    t_anchors = filter_to_remove_overlap(t_anchors)
+        # template strand: the event map increases with read position
+        tm = npread.template_event_map
+        ev_start_t = int(tm[guide.start2])
+        ev_end_t = int(tm[end2])
+        t_events = npread.template_events[ev_start_t:ev_end_t]
+        t_anchors = remap_anchor_pairs_with_offset(anchors, tm, guide.start2)
+        if len(t_anchors):
+            ok_t = ((t_anchors[:, 0] >= 0) & (t_anchors[:, 0] < max(lX_kmers, 1))
+                    & (t_anchors[:, 1] >= 0) & (t_anchors[:, 1] < max(len(t_events), 1)))
+            t_anchors = t_anchors[ok_t]
+        t_anchors = filter_to_remove_overlap(t_anchors)
 
-    # complement strand: the complement event map decreases with read
-    # position; events [cm[end2], cm[start2]) in increasing order align to
-    # the reverse-complement target with anchors mirrored on both axes
-    # (the intended form of vanillaAlign.c:301-316)
-    cm = npread.complement_event_map
-    ev_lo_c = int(cm[end2])
-    ev_hi_c = int(cm[guide.start2])
-    c_events = npread.complement_events[ev_lo_c:ev_hi_c]
-    if len(anchors):
-        cx = (lX_kmers - 1) - anchors[:, 0]
-        cy = cm[np.minimum(anchors[:, 1] + guide.start2, len(cm) - 1)] - ev_lo_c
-        c_anchors = np.stack([cx, cy], axis=1)[::-1]
-        ok = (c_anchors[:, 0] >= 0) & (c_anchors[:, 1] >= 0) & \
-             (c_anchors[:, 0] < max(lX_kmers, 1)) & (c_anchors[:, 1] < max(len(c_events), 1))
-        c_anchors = filter_to_remove_overlap(c_anchors[ok])
-    else:
-        c_anchors = anchors
+        # complement strand: the complement event map decreases with read
+        # position; events [cm[end2], cm[start2]) in increasing order align to
+        # the reverse-complement target with anchors mirrored on both axes
+        # (the intended form of vanillaAlign.c:301-316)
+        cm = npread.complement_event_map
+        ev_lo_c = int(cm[end2])
+        ev_hi_c = int(cm[guide.start2])
+        c_events = npread.complement_events[ev_lo_c:ev_hi_c]
+        if len(anchors):
+            cx = (lX_kmers - 1) - anchors[:, 0]
+            cy = cm[np.minimum(anchors[:, 1] + guide.start2, len(cm) - 1)] - ev_lo_c
+            c_anchors = np.stack([cx, cy], axis=1)[::-1]
+            ok = (c_anchors[:, 0] >= 0) & (c_anchors[:, 1] >= 0) & \
+                 (c_anchors[:, 0] < max(lX_kmers, 1)) & (c_anchors[:, 1] < max(len(c_events), 1))
+            c_anchors = filter_to_remove_overlap(c_anchors[ok])
+        else:
+            c_anchors = anchors
 
-    strand_ctx = []
-    for strand, target, raw_target, model, sparams, events_all, strand_events, \
-            strand_anchors, ref_off, ev_off in (
-            ("t", t_target, trimmed, template_model, npread.template_params,
-             npread.template_events, t_events, t_anchors, guide.start1, ev_start_t),
-            ("c", c_target, rc_trimmed, complement_model, npread.complement_params,
-             npread.complement_events, c_events, c_anchors, guide.end1, ev_lo_c)):
-        scaled = model
-        if sm_type != "threeStateHdp":
-            scaled = scale_model(model, sparams.scale, sparams.shift, sparams.var,
-                                 sparams.scale_sd, sparams.var_sd)
-        make_sm = (make_sm_factory(sm_type, scaled, strand,
-                                   hdp_density=hdp_density.get(strand),
-                                   **trained.get(strand, {}))
-                   if len(strand_events) else None)
-        strand_ctx.append({
-            "strand": strand, "target": target, "raw_target": raw_target,
-            "scaled": scaled, "sparams": sparams, "events_all": events_all,
-            "events": strand_events, "anchors": strand_anchors,
-            "ref_off": ref_off, "ev_off": ev_off, "make_sm": make_sm,
-        })
-    results["forward"] = forward
-    results["strand_ctx"] = strand_ctx
-    results["sm_type"] = sm_type
-    return results
+        strand_ctx = []
+        for strand, target, raw_target, model, sparams, events_all, strand_events, \
+                strand_anchors, ref_off, ev_off in (
+                ("t", t_target, trimmed, template_model, npread.template_params,
+                 npread.template_events, t_events, t_anchors, guide.start1, ev_start_t),
+                ("c", c_target, rc_trimmed, complement_model, npread.complement_params,
+                 npread.complement_events, c_events, c_anchors, guide.end1, ev_lo_c)):
+            scaled = model
+            if sm_type != "threeStateHdp":
+                scaled = scale_model(model, sparams.scale, sparams.shift, sparams.var,
+                                     sparams.scale_sd, sparams.var_sd)
+            make_sm = (make_sm_factory(sm_type, scaled, strand,
+                                       hdp_density=hdp_density.get(strand),
+                                       **trained.get(strand, {}))
+                       if len(strand_events) else None)
+            strand_ctx.append({
+                "strand": strand, "target": target, "raw_target": raw_target,
+                "scaled": scaled, "sparams": sparams, "events_all": events_all,
+                "events": strand_events, "anchors": strand_anchors,
+                "ref_off": ref_off, "ev_off": ev_off, "make_sm": make_sm,
+            })
+        results["forward"] = forward
+        results["strand_ctx"] = strand_ctx
+        results["sm_type"] = sm_type
+        return results
 
 
 def strand_jobs(ctx: dict, params: AlignmentParams):

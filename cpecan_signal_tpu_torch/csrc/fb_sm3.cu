@@ -1377,6 +1377,23 @@ void fb_launch_config(int S, int C, int W, int n_edges, int em, int* cfg) {
   cfg[3] = (int)smem;
 }
 
+// Blocks of a recursion launch (the forward's, or with backward != 0 the
+// backward's) that one SM holds at once at (S, C, W): the occupancy
+// calculator's answer for the kernel's registers, its W / LANES_PER_THREAD
+// threads and its shared memory.
+int fb_recursion_blocks_per_sm(int S, int C, int W, int backward, int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem;
+  ring_depth(S, C, W, &smem);
+  const void* fn = backward ? (const void*)recursion_kernel<true>
+                            : (const void*)recursion_kernel<false>;
+  err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, W / LANES_PER_THREAD,
+                                                            smem);
+}
+
 // The emissions launch: diagonals a block (EMIT_TILE), floats of a staged
 // row, threads and dynamic shared bytes of a block at window width W.
 void fb_emissions_config(int W, int* cfg) {

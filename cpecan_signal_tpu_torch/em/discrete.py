@@ -32,6 +32,7 @@ from ..engine import pipeline as pp
 from ..engine import readpath
 from ..engine.align import AlignedPairs, SplitJob, collect_symbol_split_jobs  # noqa: F401
 from ..ops import fb_kernels as fk
+from ..utils.observability import counters
 
 N_SYM = 4
 
@@ -107,8 +108,7 @@ def discrete_expectations_batched(jobs: list[SplitJob], *, device: torch.device,
     buckets = readpath.symbol_buckets(staged)
     pending = [(plan, chunk, em_bucket_step(plan, W, Dp, staged, chunk, device))
                for plan, W, Dp, chunk in buckets]
-    if timing is not None:
-        timing["buckets"] = timing.get("buckets", 0) + len(buckets)
+    counters.add("buckets", len(buckets), timing)
     packed_of = readpath._collect_packed([h for _p, _c, h in pending])
     out = [None] * len(jobs)
     for (plan, chunk, _h), packed in zip(pending, packed_of):

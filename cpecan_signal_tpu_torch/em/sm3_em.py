@@ -19,10 +19,18 @@ Everything else (emission parameter packs, window scalars) is static.
 
 Buckets stay on the card up to a byte budget (``_EmBudget``); the rest stay
 in pinned host memory and are uploaded, without blocking, at every step.
+
+Each step adds every bucket's work to ``utils/observability.counters``, as
+host integers counted when the bucket was built: ``em.problems``,
+``em.diagonals`` (each problem's own), ``em.cells_lane`` (W lanes a
+diagonal), ``em.cells_band`` (the true band's cells) and, on a card,
+``em.sm_slots`` (SMs x recursion blocks an SM holds x the bucket's padded
+diagonal count Dp: what a launch could hold while it runs).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -39,7 +47,9 @@ from ..models.params import AlignmentParams
 from ..models.pore_model import PoreModel, scale_model
 from ..models.state_machines import (LOG_TENTH, SM3_NANOPORE_TRANSITIONS,
                                      make_signal_sm3)
+from ..ops import fb_kernels as fk
 from ..parallel.distributed import ranks_sharing_device
+from ..utils.observability import counters, timed
 
 MAX_BUCKET = 64  # problems per device batch (bounds host packing memory)
 BUDGET_ENV = "CPECAN_EM_HBM_BUDGET"   # bytes of buckets kept on the card
@@ -137,7 +147,8 @@ def collect_sm3_em_jobs(reads: list[dict], models: dict, params: AlignmentParams
 
 @dataclass
 class SM3EmBucket:
-    """One width bucket of stacked problems."""
+    """One width bucket of stacked problems, and the work a step of it does
+    (host integers, counted at build)."""
 
     plan: EnginePlan
     W: int
@@ -146,6 +157,17 @@ class SM3EmBucket:
     ragged_right: np.ndarray
     resident: bool
     device: torch.device
+    Dp: int                  # diagonals of the launch: its longest problem's
+    counts: dict             # em.problems, em.diagonals, em.cells_lane, em.cells_band
+
+
+def _bucket_counts(W: int, bands) -> dict:
+    """A bucket's counters from each problem's true band limits (xmyL,
+    xmyR) over its own diagonals: B, the diagonals, W lanes on each of them
+    and the band's cells there ((xmyR - xmyL) / 2 + 1 a diagonal)."""
+    D = sum(len(xmyL) for xmyL, _ in bands)
+    return {"em.problems": len(bands), "em.diagonals": D, "em.cells_lane": W * D,
+            "em.cells_band": sum(int(((xmyR - xmyL) // 2 + 1).sum()) for xmyL, xmyR in bands)}
 
 
 def build_sm3_em_buckets(jobs: list[EmJob], *, device: torch.device,
@@ -155,36 +177,39 @@ def build_sm3_em_buckets(jobs: list[EmJob], *, device: torch.device,
     loop): one bucket per window width and MAX_BUCKET jobs, padded to the
     chunk's longest job (Dp = its diagonal count).  ``budget`` (shared
     across strands by the caller) decides which buckets stay on the device."""
-    if budget is None:
-        budget = _EmBudget(device)
-    wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
-    groups: dict[int, list[int]] = {}
-    for i, wb in enumerate(wbands):
-        groups.setdefault(wb.W, []).append(i)
+    with timed("em.build_buckets"):
+        if budget is None:
+            budget = _EmBudget(device)
+        wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
+        groups: dict[int, list[int]] = {}
+        for i, wb in enumerate(wbands):
+            groups.setdefault(wb.W, []).append(i)
 
-    cpu = torch.device("cpu")
-    buckets = []
-    for W, idxs in sorted(groups.items()):
-        for lo in range(0, len(idxs), MAX_BUCKET):
-            chunk = idxs[lo:lo + MAX_BUCKET]
-            Dp = max(wbands[i].n_diagonals for i in chunk)
-            lxp = max(len(jobs[i].target) for i in chunk)
-            lyp = max(len(jobs[i].events) for i in chunk)
-            plan, probs = None, []
-            for i in chunk:
-                j = jobs[i]
-                plan, prob = pp.make_sm3_problem(
-                    j.pore, j.target, j.events, wbands[i], device=cpu,
-                    ragged_left=j.ragged_left, ragged_right=j.ragged_right,
-                    pad_lx=lxp, pad_ly=lyp, pad_d=Dp)
-                probs.append(prob)
-            batch, resident = budget.place(pp.stack_problems(probs))
-            buckets.append(SM3EmBucket(
-                plan=plan, W=W, batch=batch,
-                ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
-                ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
-                resident=resident, device=device))
-    return buckets
+        cpu = torch.device("cpu")
+        buckets = []
+        for W, idxs in sorted(groups.items()):
+            for lo in range(0, len(idxs), MAX_BUCKET):
+                chunk = idxs[lo:lo + MAX_BUCKET]
+                Dp = max(wbands[i].n_diagonals for i in chunk)
+                lxp = max(len(jobs[i].target) for i in chunk)
+                lyp = max(len(jobs[i].events) for i in chunk)
+                plan, probs = None, []
+                for i in chunk:
+                    j = jobs[i]
+                    plan, prob = pp.make_sm3_problem(
+                        j.pore, j.target, j.events, wbands[i], device=cpu,
+                        ragged_left=j.ragged_left, ragged_right=j.ragged_right,
+                        pad_lx=lxp, pad_ly=lyp, pad_d=Dp)
+                    probs.append(prob)
+                batch, resident = budget.place(pp.stack_problems(probs))
+                buckets.append(SM3EmBucket(
+                    plan=plan, W=W, batch=batch,
+                    ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
+                    ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
+                    resident=resident, device=device, Dp=Dp,
+                    counts=_bucket_counts(W, [(wbands[i].xmyL, wbands[i].xmyR)
+                                              for i in chunk])))
+        return buckets
 
 
 def bucket_from_jax(bucket, device: torch.device) -> SM3EmBucket:
@@ -192,10 +217,25 @@ def bucket_from_jax(bucket, device: torch.device) -> SM3EmBucket:
     batch's arrays readable as numpy) carried over to the port, resident on
     ``device``."""
     plan, batch = pp.problem_from_numpy(bucket.plan, bucket.batch, device)
+    ds = np.asarray(bucket.batch.diag_scalars, dtype=np.int64)[:, :, 0]
+    bands = [(ds[b, :d + 1, fk.DS_XMYL], ds[b, :d + 1, fk.DS_XMYR])
+             for b, d in enumerate(np.asarray(bucket.batch.d_last))]
     return SM3EmBucket(plan=plan, W=int(bucket.W), batch=batch,
                        ragged_left=np.asarray(bucket.ragged_left, dtype=bool),
                        ragged_right=np.asarray(bucket.ragged_right, dtype=bool),
-                       resident=True, device=device)
+                       resident=True, device=device, Dp=ds.shape[1] - 1,
+                       counts=_bucket_counts(int(bucket.W), bands))
+
+
+@functools.cache
+def _sm_slots_per_diagonal(device: torch.device, S: int, W: int) -> int:
+    """SMs x the recursion blocks an SM holds at (S, W), on a CUDA device;
+    0 elsewhere.  E has emissions_sm3's 3 channels."""
+    if device.type != "cuda":
+        return 0
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * fk.recursion_blocks_per_sm(S, 3, W, index)
 
 
 def _sm3_iteration_arrays(transitions: dict | None):
@@ -255,6 +295,11 @@ def sm3_em_step(buckets: list[SM3EmBucket], transitions: dict | None = None,
         start = pp.to_device(np.where(b.ragged_left[:, None], rsv, sv), device)
         end = pp.to_device(np.where(b.ragged_right[:, None], rev, ev), device)
         trans, kmer, lik = bucket_step(b, gapx_t, tp_t, start, end)
+        for name, n in b.counts.items():
+            counters.add(name, n)
+        slots = _sm_slots_per_diagonal(device, b.plan.n_states, b.W)
+        if slots:
+            counters.add("em.sm_slots", slots * b.Dp)
         trans_sum += trans.double()
         kmer_sum += kmer.double()
         lik_sum += lik.double()

@@ -21,7 +21,6 @@ thresholded on the host.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -31,6 +30,7 @@ from ..constants import PAIR_ALIGNMENT_PROB_1
 from ..core.window import WindowBand, smooth_band
 from ..models.state_machines import ECH_GAPX
 from ..ops import fb_kernels as fk
+from ..utils.observability import timed
 from . import pipeline as pp
 from . import readpath
 from .align import AlignedPairs, SplitJob, _extract_pairs
@@ -126,37 +126,33 @@ def _run_generic_buckets(jobs, wbands, groups, threshold, device, out, timing=No
     dispatch every bucket first, then collect every posterior grid with one
     copy and extract the pairs on the host.  Echelon buckets run the
     backward kernel's per-state posteriors (pstates = its matchN states)."""
-    t0 = time.perf_counter()
     pending = []
-    for (name, _W), idxs in groups.items():
-        CT = pp._plan_channels(jobs[idxs[0]].sm)[1]
-        for chunk in _generic_chunks(wbands, idxs, CT):
-            plan, batch = pp.pack_window_bucket(
-                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                 for i in chunk], device)
-            pstates = (tuple(range(plan.match_state, ECH_GAPX))   # match1..match5
-                       if name == "echelon" else None)
-            p, _totals = pp.run_window(plan, wbands[chunk[0]].W, batch, pstates=pstates)
-            pending.append((chunk, p, pstates))
-    t1 = time.perf_counter()
-    grids = readpath._collect_packed([p for _c, p, _s in pending])
-    t2 = time.perf_counter()
-    for (chunk, _p, pstates), p in zip(pending, grids):
-        for bi, i in enumerate(chunk):
-            wb = wbands[i]
-            D = wb.n_diagonals
-            if pstates is not None:
-                pairs = _extract_multi_window(p[bi, :D].transpose(1, 0, 2), wb, threshold,
-                                              jobs[i].off_x, jobs[i].off_y)
-            else:
-                x, y, _valid = window_grids(wb)
-                pairs = _extract_pairs(p[bi, :D], x, y, threshold, jobs[i].off_x,
-                                       jobs[i].off_y)
-            out[i] = AlignedPairs(*pairs)
-    if timing is not None:
-        for key, dt in (("host_pack", t1 - t0), ("device_wait", t2 - t1),
-                        ("host_extract", time.perf_counter() - t2)):
-            timing[key] = timing.get(key, 0.0) + dt
+    with timed("host_pack", timing):
+        for (name, _W), idxs in groups.items():
+            CT = pp._plan_channels(jobs[idxs[0]].sm)[1]
+            for chunk in _generic_chunks(wbands, idxs, CT):
+                plan, batch = pp.pack_window_bucket(
+                    [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                     for i in chunk], device)
+                pstates = (tuple(range(plan.match_state, ECH_GAPX))   # match1..match5
+                           if name == "echelon" else None)
+                p, _totals = pp.run_window(plan, wbands[chunk[0]].W, batch, pstates=pstates)
+                pending.append((chunk, p, pstates))
+    with timed("device_wait", timing):
+        grids = readpath._collect_packed([p for _c, p, _s in pending])
+    with timed("host_extract", timing):
+        for (chunk, _p, pstates), p in zip(pending, grids):
+            for bi, i in enumerate(chunk):
+                wb = wbands[i]
+                D = wb.n_diagonals
+                if pstates is not None:
+                    pairs = _extract_multi_window(p[bi, :D].transpose(1, 0, 2), wb,
+                                                  threshold, jobs[i].off_x, jobs[i].off_y)
+                else:
+                    x, y, _valid = window_grids(wb)
+                    pairs = _extract_pairs(p[bi, :D], x, y, threshold, jobs[i].off_x,
+                                           jobs[i].off_y)
+                out[i] = AlignedPairs(*pairs)
 
 
 def job_window(band) -> WindowBand:
@@ -188,36 +184,34 @@ def _run_hdp_buckets(jobs, wbands, idxs, threshold, device, out, timing=None) ->
     every passing cell: the count is read back (one wait a bucket), then
     ``readpath._extract_global`` keeps every lane of a diagonal; all buckets
     are collected with one copy."""
-    t0 = time.perf_counter()
-    groups: dict[tuple, list[int]] = {}
-    for i in idxs:
-        groups.setdefault((id(jobs[i].sm.hdp_pack[0]), wbands[i].W), []).append(i)
-    pending = []
-    for (_tid, W), g_idxs in groups.items():
-        tab0, g0, dg = jobs[g_idxs[0]].sm.hdp_pack[:3]
-        tab = pp.to_device(np.maximum(tab0, 0.0).astype(np.float32), device)
-        for chunk in _generic_chunks(wbands, g_idxs, 3):
-            Dp = max(wbands[i].n_diagonals for i in chunk)
-            plan, (ds, d_last, start, end, tp, x0) = pp.stack_window_scalars(
-                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                 for i in chunk], Dp, device)
-            rank, mean = (np.stack(a) for a in zip(*(pp.hdp_inputs(jobs[i].sm, Dp + 2)
-                                                     for i in chunk)))
-            E = readpath.hdp_emissions(tab, g0, dg or 1.0, pp.to_device(rank, device),
-                                       pp.to_device(mean, device),
-                                       ds[:, :Dp, 0, fk.DS_W0], d_last, W)
-            p, _totals = pp.run_window(plan, W, pp.WindowProblem(E, ds, d_last, start,
-                                                                 end, tp, x0))
-            del E
-            Kg = readpath._round_up(int((p >= np.float32(threshold)).sum()) + 1, 2048)
-            real = torch.ones(len(chunk), dtype=torch.bool, device=device)
-            cnt, over, outq, outi = readpath._extract_global(p, threshold, Kg, real, L=W)
-            staged = [(i, _Placed(wbands[i], jobs[i].off_x, jobs[i].off_y), plan)
-                      for i in chunk]
-            pending.append((staged, list(range(len(chunk))),
-                            torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
-    if timing is not None:
-        timing["host_pack"] = timing.get("host_pack", 0.0) + (time.perf_counter() - t0)
+    with timed("host_pack", timing):
+        groups: dict[tuple, list[int]] = {}
+        for i in idxs:
+            groups.setdefault((id(jobs[i].sm.hdp_pack[0]), wbands[i].W), []).append(i)
+        pending = []
+        for (_tid, W), g_idxs in groups.items():
+            tab0, g0, dg = jobs[g_idxs[0]].sm.hdp_pack[:3]
+            tab = pp.to_device(np.maximum(tab0, 0.0).astype(np.float32), device)
+            for chunk in _generic_chunks(wbands, g_idxs, 3):
+                Dp = max(wbands[i].n_diagonals for i in chunk)
+                plan, (ds, d_last, start, end, tp, x0) = pp.stack_window_scalars(
+                    [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                     for i in chunk], Dp, device)
+                rank, mean = (np.stack(a) for a in zip(*(pp.hdp_inputs(jobs[i].sm, Dp + 2)
+                                                         for i in chunk)))
+                E = readpath.hdp_emissions(tab, g0, dg or 1.0, pp.to_device(rank, device),
+                                           pp.to_device(mean, device),
+                                           ds[:, :Dp, 0, fk.DS_W0], d_last, W)
+                p, _totals = pp.run_window(plan, W, pp.WindowProblem(E, ds, d_last, start,
+                                                                     end, tp, x0))
+                del E
+                Kg = readpath._round_up(int((p >= np.float32(threshold)).sum()) + 1, 2048)
+                real = torch.ones(len(chunk), dtype=torch.bool, device=device)
+                cnt, over, outq, outi = readpath._extract_global(p, threshold, Kg, real, L=W)
+                staged = [(i, _Placed(wbands[i], jobs[i].off_x, jobs[i].off_y), plan)
+                          for i in chunk]
+                pending.append((staged, list(range(len(chunk))),
+                                torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
     for ji, pairs in readpath.collect_fast_jobs(pending, timing=timing).items():
         assert pairs is not None, ji   # a slot for every passing cell
         out[ji] = pairs
@@ -236,7 +230,6 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
     table among them: the --substitute alphabet) are bucketed by (machine,
     window width) and run last.  Returns (jobs, pairs) with pairs aligned
     to jobs."""
-    t0 = time.perf_counter()
     jobs: list[SplitJob] = []
     wbands = []
     staged_wave: list = []
@@ -254,30 +247,29 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
             staged_wave = []
             ev_acc = 0
 
-    for jl in per_read_jobs:
-        for j in jl:
-            i = len(jobs)
-            jobs.append(j)
-            wb = job_window(j.band)
-            wbands.append(wb)
-            if getattr(j.sm, "hdp_pack", None) is not None:
-                hdp_idxs.append(i)
-                continue
-            if getattr(j.sm, "sm3_pack", None) is None:
-                sym = readpath.stage_symbol_job(j, wb)
-                if sym is not None:
-                    staged_sym.append((i, *sym))
-                else:
-                    generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
-                continue
-            fj, plan = readpath.stage_fast_job(j, wb)
-            staged_wave.append((i, fj, plan))
-            ev_acc += len(fj.events)
-        if ev_acc >= WAVE_EVENTS:
-            flush()
-    flush()
-    if timing is not None:
-        timing["host_pack"] = timing.get("host_pack", 0.0) + (time.perf_counter() - t0)
+    with timed("host_pack", timing):
+        for jl in per_read_jobs:
+            for j in jl:
+                i = len(jobs)
+                jobs.append(j)
+                wb = job_window(j.band)
+                wbands.append(wb)
+                if getattr(j.sm, "hdp_pack", None) is not None:
+                    hdp_idxs.append(i)
+                    continue
+                if getattr(j.sm, "sm3_pack", None) is None:
+                    sym = readpath.stage_symbol_job(j, wb)
+                    if sym is not None:
+                        staged_sym.append((i, *sym))
+                    else:
+                        generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
+                    continue
+                fj, plan = readpath.stage_fast_job(j, wb)
+                staged_wave.append((i, fj, plan))
+                ev_acc += len(fj.events)
+            if ev_acc >= WAVE_EVENTS:
+                flush()
+        flush()
 
     out: list[AlignedPairs | None] = [None] * len(jobs)
     overflow = []

@@ -33,6 +33,7 @@ from ..models.state_machines import (LOG_TENTH, _GAPX_CLASS, _GAPY_CLASS,
                                      _MATCH_CLASS)
 
 from ..ops import fb_kernels as fk
+from ..utils.observability import timed
 from . import pipeline as pp
 from .align import AlignedPairs
 from .plan import _build_plan
@@ -545,20 +546,12 @@ def dispatch_fast_jobs(staged: list[tuple[int, _FastJob, object]],
 def collect_fast_jobs(pending: list, *, timing: dict | None = None) -> dict[int, object]:
     """Single-copy collection + host decode of any number of dispatched
     waves (their pending lists concatenated)."""
-    import time as _time
-
-    tw = _time.perf_counter()
-    packed_of = _collect_packed([p[2] for p in pending])
-    t_wait = _time.perf_counter() - tw
-
+    with timed("device_wait", timing):
+        packed_of = _collect_packed([p[2] for p in pending])
     out: dict[int, object] = {}
-    for (staged, chunk, _handle, W, Dp, Kg), packed in zip(pending, packed_of):
-        _decode_global(packed, chunk, staged, W, Dp, Kg, out)
-    if timing is not None:
-        t2 = _time.perf_counter()
-        timing["device_wait"] = timing.get("device_wait", 0.0) + t_wait
-        timing["host_extract"] = timing.get("host_extract", 0.0) \
-            + (t2 - tw - t_wait)
+    with timed("host_extract", timing):
+        for (staged, chunk, _handle, W, Dp, Kg), packed in zip(pending, packed_of):
+            _decode_global(packed, chunk, staged, W, Dp, Kg, out)
     return out
 
 
@@ -567,12 +560,8 @@ def run_fast_jobs(staged: list[tuple[int, _FastJob, object]], threshold: float,
     """Dispatch all staged jobs (list of (job_index, _FastJob, plan)), then
     collect and decode.  Returns {job_index: AlignedPairs}, with overflowed
     jobs mapped to None for the caller's full-grid re-route."""
-    import time as _time
-
-    t0 = _time.perf_counter()
-    pending = dispatch_fast_jobs(staged, threshold, device=device)
-    if timing is not None:
-        timing["host_pack"] = timing.get("host_pack", 0.0) + (_time.perf_counter() - t0)
+    with timed("host_pack", timing):
+        pending = dispatch_fast_jobs(staged, threshold, device=device)
     return collect_fast_jobs(pending, timing=timing)
 
 
@@ -830,22 +819,18 @@ def run_symbol_jobs(staged: list[tuple[int, _SymJob, object]], threshold: float,
     backward, and its pairs compacted on the device; all buckets dispatched,
     then collected with one copy.  Returns {job_index: AlignedPairs}, None
     for a job whose pairs overflowed (the caller's full-grid re-route)."""
-    import time as _time
-
-    t0 = _time.perf_counter()
     pending = []
-    for plan, W, Dp, chunk in symbol_buckets(staged):
-        sj0 = staged[chunk[0]][1]
-        bufs, n_cy = stage_symbol_bucket(staged, chunk, device)
-        # nucleotide posteriors spread more mass off the diagonal than the
-        # signal lane's: room for 2 pairs a y position, the full-grid
-        # re-route catching the rare spill
-        Kg = _round_up(2 * n_cy + 512, 2048)
-        prob, _cxp, _cyp, real = symbol_problem(W, Dp, len(sj0.tp_scalar), len(sj0.start),
-                                                *bufs)
-        p, _totals = pp.run_window(plan, W, prob)
-        cnt, over, outq, outi = _extract_global(p, threshold, Kg, real)
-        pending.append((staged, chunk, torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
-    if timing is not None:
-        timing["host_pack"] = timing.get("host_pack", 0.0) + (_time.perf_counter() - t0)
+    with timed("host_pack", timing):
+        for plan, W, Dp, chunk in symbol_buckets(staged):
+            sj0 = staged[chunk[0]][1]
+            bufs, n_cy = stage_symbol_bucket(staged, chunk, device)
+            # nucleotide posteriors spread more mass off the diagonal than the
+            # signal lane's: room for 2 pairs a y position, the full-grid
+            # re-route catching the rare spill
+            Kg = _round_up(2 * n_cy + 512, 2048)
+            prob, _cxp, _cyp, real = symbol_problem(W, Dp, len(sj0.tp_scalar),
+                                                    len(sj0.start), *bufs)
+            p, _totals = pp.run_window(plan, W, prob)
+            cnt, over, outq, outi = _extract_global(p, threshold, Kg, real)
+            pending.append((staged, chunk, torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
     return collect_fast_jobs(pending, timing=timing)

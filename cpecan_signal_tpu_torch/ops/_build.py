@@ -46,6 +46,8 @@ _SIGNATURES = {
     # (S, C, W, n_edges, stage 4?) -> 4 ints: ring slots, recursion shared
     # bytes, epilogue warps, epilogue shared bytes
     "fb_launch_config": ([_I] * 5 + [_P], None),
+    # (S, C, W, backward?, device) -> the recursion blocks an SM holds
+    "fb_recursion_blocks_per_sm": ([_I] * 5 + [_P], _I),
     # W -> 4 ints: diagonals a block, floats of a staged row, threads and
     # dynamic shared bytes of an emissions block
     "fb_emissions_config": ([_I, _P], None),

@@ -75,6 +75,25 @@ def epilogue_warps(S: int, W: int, n_edges: int, em: bool) -> tuple[int, int]:
     return n, n * per
 
 
+@functools.cache
+def recursion_blocks_per_sm(S: int, C: int, W: int, device_index: int) -> int:
+    """Recursion blocks (of the forward's and the backward's launch, the
+    fewer) that one SM of a card holds at once at (S, C, W): the CUDA
+    occupancy calculator's answer for the kernels as built."""
+    from ._build import load_library
+
+    lib = load_library()
+    n = ctypes.c_int()
+    blocks = []
+    for backward in (0, 1):
+        err = lib.fb_recursion_blocks_per_sm(S, C, W, backward, device_index, ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: {lib.fb_error_string(err).decode()} "
+                               f"({err})")
+        blocks.append(n.value)
+    return min(blocks)
+
+
 # the emissions kernel (csrc/fb_sm3.cu emit_row_floats, emit_threads,
 # emit_smem; reported on the card by fb_emissions_config)
 EMIT_TILE = 64               # diagonals of an emissions block

@@ -6,17 +6,25 @@ a leveled logger, process-wide counters for the alignment statistics the
 reference logs (anchor counts, band widths, split counts, pairs emitted), and
 a torch.profiler trace context for the card's kernels.
 
+``timed`` is the port's one span: it adds its seconds to ``counters``
+(``time.<name>``) and to a caller's ``timing`` dict, and while a torch
+profiler records it also marks the profiler's timeline as
+``cpecan:<name>``, beside the kernels the span launched.
+
 Copied from ``cpecan_signal_tpu/utils/observability.py``; ``profile_trace``
-is the port's own (torch.profiler, a Chrome trace, in place of
-jax.profiler), so that the port imports nothing of the JAX package.
+and the profiler region of ``timed`` are the port's own (torch.profiler, a
+Chrome trace, in place of jax.profiler), so that the port imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from collections import defaultdict
+from time import perf_counter
+
+import torch
 
 logger = logging.getLogger("cpecan_signal_tpu_torch")
 
@@ -35,8 +43,12 @@ class Counters:
     def __init__(self):
         self.values: dict[str, float] = defaultdict(float)
 
-    def add(self, name: str, value: float = 1.0) -> None:
+    def add(self, name: str, value: float = 1.0, timing: dict | None = None) -> None:
+        """Add ``value`` under ``name``, and into ``timing[name]`` when the
+        caller passed a dict."""
         self.values[name] += value
+        if timing is not None:
+            timing[name] = timing.get(name, 0) + value
 
     def observe(self, name: str, value: float) -> None:
         self.values[f"{name}.sum"] += value
@@ -55,22 +67,57 @@ class Counters:
 counters = Counters()
 
 
-@contextlib.contextmanager
-def timed(name: str):
-    t0 = time.perf_counter()
-    yield
-    counters.observe(f"time.{name}", time.perf_counter() - t0)
+# whether a torch profiler records (0.2 us; opening a region costs more even
+# with none recording)
+_profiling = torch._C._autograd._profiler_enabled
+# the region a span opens while a profiler records: a function-scope record.
+# torch.profiler.record_function's user-scope region is mirrored onto the
+# card's timeline as an annotation from the span's first kernel to its last,
+# host gaps included, which a reader of the device's busy time would count
+_region = torch._C._profiler._RecordFunctionFast
+
+
+class timed:
+    """A span: ``with timed(name, timing):`` adds the block's seconds to
+    ``counters`` (``time.<name>.sum`` / ``.count`` / ``.max``) and, when the
+    caller passed a dict, to ``timing[name]``.  Only while a torch profiler
+    records does it also open the region ``cpecan:<name>`` on the
+    profiler's clock; otherwise it makes no call into torch beyond that
+    check.  Spans nest, each level counting its own seconds."""
+
+    __slots__ = ("name", "timing", "region", "t0")
+
+    def __init__(self, name: str, timing: dict | None = None):
+        self.name = name
+        self.timing = timing
+
+    def __enter__(self):
+        self.region = None
+        if _profiling():
+            self.region = _region("cpecan:" + self.name)
+            self.region.__enter__()
+        self.t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = perf_counter() - self.t0
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        counters.observe("time." + self.name, dt)
+        if self.timing is not None:
+            self.timing[self.name] = self.timing.get(self.name, 0.0) + dt
+        return False
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """torch.profiler trace of the CPU and (where there is one) the card's
-    kernels over the block, written to ``log_dir`` as a Chrome trace
+    kernels over the block, with the program's spans (``timed``) as
+    ``cpecan:<name>`` regions, written to ``log_dir`` as a Chrome trace
     (``trace.<pid>.json``, view in chrome://tracing or Perfetto); yields
     the profiler."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -482,6 +482,26 @@ def test_cuda_launch_config_matches_wrappers(cuda_device):
         assert tuple(cfg) == fk.emission_config(W)
 
 
+def test_cuda_em_step_counts_sm_slots(cuda_device, monkeypatch):
+    """An EM step on the card adds SMs x the recursion blocks an SM holds x
+    each bucket's Dp to em.sm_slots; the occupancy calculator gives at least
+    one block at every width, and one at 1024 lanes."""
+    from cpecan_signal_tpu_torch.utils.observability import counters
+    from test_torch_tracing import _em_jobs
+
+    assert fk.recursion_blocks_per_sm(3, 3, 1024, 0) == 1
+    assert all(fk.recursion_blocks_per_sm(3, 3, W, 0) >= 1 for W in range(32, 1025, 32))
+    monkeypatch.setattr(sm3_em, "MAX_BUCKET", 2)
+    jobs = _em_jobs(np.random.default_rng(7), (30, 44, 38, 52, 41))
+    buckets = sm3_em.build_sm3_em_buckets(jobs, device=cuda_device, width_multiple=64)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    want = sum(sms * fk.recursion_blocks_per_sm(3, 3, b.W, torch.cuda.current_device()) * b.Dp
+               for b in buckets)
+    before = counters.snapshot().get("em.sm_slots", 0.0)
+    sm3_em.sm3_em_step(buckets)
+    assert counters.snapshot()["em.sm_slots"] - before == want > 0
+
+
 @pytest.mark.parametrize("W, Dp, B, offsets", [
     (128, 301, 4, "band"),        # Dp no multiple of the tile
     (32, 40, 3, "band"),          # Dp below the tile

@@ -9,7 +9,8 @@ bases a strand, no anchors), packed into EM buckets by each package.
   * (c) two iterations of the port's sm3_em_step against the JAX device
     E-step and the host f64 sm3_expectations, all fed the same M-step
     parameters;
-  * (d) a zero device budget (every bucket streamed) against a resident build;
+  * (d) a zero device budget (every bucket streamed) against a resident build,
+    and a carried-over bucket's work counters against the port's build;
   * (e) the port's train_models CLI against the JAX CLI's host engine on
     synthetic npReads, and a resume from a checkpoint; its host f64 routes
     (``engine="host"``, ``jobs=2``, threeStateHdp at threshold 0) against
@@ -122,6 +123,21 @@ def test_sm3_expectations_matches_pallas(jax_buckets):
     np.testing.assert_allclose(kmer.numpy(), np.array(j_kmer), rtol=STEP_RTOL,
                                atol=STEP_ATOL)
     assert abs(float(lik) - float(j_lik)) <= LIK_RTOL * abs(float(j_lik))
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_carried_bucket_counts_its_work_as_built(W, em_set, jax_buckets):
+    """A bucket carried over from the JAX package counts the same problems,
+    diagonals, lane and band cells as the port's own build of the same jobs
+    (its Dp is the JAX packing's own)."""
+    reads, models, params = em_set
+    (built,) = tem.build_sm3_em_buckets(tem.collect_sm3_em_jobs(reads, models, params, "t"),
+                                        device=CPU, width_multiple=W)
+    (jb,) = jax_buckets[W]
+    tb = tem.bucket_from_jax(jb, CPU)
+    assert tb.counts == built.counts
+    assert tb.Dp == tb.batch.diag_scalars.shape[1] - 1 >= built.Dp
+    assert built.counts["em.cells_band"] < built.counts["em.cells_lane"]
 
 
 @pytest.fixture(scope="module")

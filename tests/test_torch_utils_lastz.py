@@ -52,12 +52,16 @@ def test_counters_and_timed_match_jax():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the program's spans as ``cpecan:<name>`` regions."""
     log_dir = str(tmp_path / "trace")
     with tobs.profile_trace(log_dir):
-        torch.ones(64).cumsum(0)
+        with tobs.timed("trace_test"):
+            torch.ones(64).cumsum(0)
     (name,) = os.listdir(log_dir)
     with open(os.path.join(log_dir, name)) as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    assert events
+    assert any(e.get("name") == "cpecan:trace_test" for e in events)
 
 
 def _fake_lastz(tmp_path, records) -> str:

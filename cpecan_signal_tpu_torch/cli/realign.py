@@ -33,7 +33,7 @@ from ..io.fasta import read_fasta, reverse_complement
 from ..models.params import AlignmentParams
 from ..models.state_machines import bind_symbol_sequences, make_symbol_sm5
 from ..utils.device import resolve_device
-from ..utils.observability import timed
+from ..utils.observability import counters, timed
 
 def load_sequences(paths: list[str]) -> dict[str, str]:
     seqs: dict[str, str] = {}
@@ -186,8 +186,8 @@ def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
     """realign_record's output stage: AMAP reweight + consistency filter,
     rescoring, aligned-pairs -> CIGAR, coordinate restore
     (cPecanRealign.c:591-645).  ``timing`` gains the seconds of the
-    reweight ("tail.reweight"), the filter and its sort ("tail.filter") and
-    the rest ("tail.cigar")."""
+    reweight ("tail.reweight"), the filter ("tail.filter") and the rest
+    ("tail.cigar"), and the count of pairs filtered ("amap.filter_pairs")."""
     flip1, flip2 = not rec.strand1, not rec.strand2
     shift1 = rec.start1 if rec.strand1 else rec.end1
     shift2 = rec.start2 if rec.strand2 else rec.end2
@@ -212,8 +212,8 @@ def finish_record(rec: CigarRecord, aligned, sub_x: str, sub_y: str,
             pairs = amap.reweight_aligned_pairs(pairs, len(sub_x), len(sub_y),
                                                 params.gap_gamma)
         with timed("tail.filter", timing):
+            counters.add("amap.filter_pairs", len(pairs), timing)
             pairs = amap.filter_pairs_to_ordered(pairs)
-            pairs = pairs[np.lexsort((pairs[:, 2], pairs[:, 1]))] if len(pairs) else pairs
 
     with timed("tail.cigar", timing):
         if rescore == "posterior":
@@ -305,7 +305,7 @@ def realign_records_batched(records: list[CigarRecord], seqs: dict[str, str],
     and splits ("head", with "head.stage" and "head.split"), the device
     batch ("batch", with its own stages) and the tails ("tail", with
     "tail.assemble" and finish_record's "tail.reweight", "tail.filter" and
-    "tail.cigar")."""
+    "tail.cigar"), and finish_record's count "amap.filter_pairs"."""
     from ..em.discrete import batched_pairs_for_records
     from ..engine.batch_align import assemble_pairs
 

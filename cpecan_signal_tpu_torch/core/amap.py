@@ -8,17 +8,24 @@ weighted LIS), and cPecanRealign.c:58-209, 295-340 (cigar conversion, indel
 splitting, rescoring).
 
 Copied from ``cpecan_signal_tpu/core/amap.py`` with its imports made relative
-to the port, so that the port imports nothing of the JAX package.
+to the port, so that the port imports nothing of the JAX package.  The
+heaviest-chain DP of ``filter_pairs_to_ordered`` runs in host C++
+(``csrc/amap_chain.cpp``, built by g++ at first use) instead of a Python
+loop a pair; its chain is the same.
 """
 
 from __future__ import annotations
 
-import bisect
+import ctypes
+import functools
 
 import numpy as np
 
 from ..constants import PAIR_ALIGNMENT_PROB_1
 from ..io.cigar import CigarRecord
+from ..ops._build import host_library
+
+CHAIN_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 
 def indel_probabilities(pairs: np.ndarray, seq_length: int, x_axis: bool) -> np.ndarray:
@@ -44,66 +51,38 @@ def reweight_aligned_pairs(pairs: np.ndarray, lx: int, ly: int,
     return out
 
 
+@functools.cache
+def chain_library() -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/amap_chain.cpp``, once a process."""
+    lib = ctypes.CDLL(str(host_library("amap_chain.cpp", CHAIN_FLAGS)))
+    i64, p = ctypes.c_int64, ctypes.c_void_p
+    lib.amap_chain.argtypes = [i64, p, p, p, i64, p]
+    lib.amap_chain.restype = i64
+    return lib
+
+
 def filter_pairs_to_ordered(pairs: np.ndarray) -> np.ndarray:
-    """Maximum-weight strictly-monotone chain of (weight, x, y) pairs.
+    """Maximum-weight strictly-monotone chain of (weight, x, y) pairs, in
+    increasing x and y.
 
     The reference routes this through its MSA consistency machinery
     (filterPairwiseAlignmentToMakePairsOrdered, multipleAligner.c:949-997);
     for two sequences any consistent column set is a monotone chain, so the
-    optimum is a weighted LIS (O(n log n)).
+    optimum is a weighted LIS (O(n log n)): a Fenwick tree of prefix maxima
+    over the pairs' y ranks, in ``csrc/amap_chain.cpp``.
     """
     if len(pairs) == 0:
         return pairs
     order = np.lexsort((pairs[:, 2], pairs[:, 1]))
     p = pairs[order]
-    n = len(p)
-    # DP over pairs sorted by (x, y): best[i] = max chain weight ending at i.
-    # Fenwick tree over compressed y for prefix-max.
-    ys = np.unique(p[:, 2])
-    m = len(ys)
-    tree_val = np.full(m + 1, -np.inf)
-    tree_idx = np.full(m + 1, -1, dtype=np.int64)
-
-    def update(j, val, idx):
-        j += 1
-        while j <= m:
-            if val > tree_val[j]:
-                tree_val[j] = val
-                tree_idx[j] = idx
-            j += j & (-j)
-
-    def query(j):  # max over y-rank < j
-        best_v, best_i = -np.inf, -1
-        while j > 0:
-            if tree_val[j] > best_v:
-                best_v, best_i = tree_val[j], tree_idx[j]
-            j -= j & (-j)
-        return best_v, best_i
-
-    best = np.zeros(n)
-    back = np.full(n, -1, dtype=np.int64)
-    # process in x order; delay updates until x strictly increases
-    i = 0
-    while i < n:
-        j = i
-        while j < n and p[j, 1] == p[i, 1]:
-            yr = int(np.searchsorted(ys, p[j, 2]))
-            v, bi = query(yr)  # strictly smaller y
-            prev = max(v, 0.0) if v > 0 else 0.0
-            back[j] = bi if v > 0 else -1
-            best[j] = prev + float(p[j, 0])
-            j += 1
-        for k in range(i, j):
-            yr = int(np.searchsorted(ys, p[k, 2]))
-            update(yr, best[k], k)
-        i = j
-    end = int(np.argmax(best))
-    chain = []
-    while end >= 0:
-        chain.append(order[end])
-        end = int(back[end])
-    chain.reverse()
-    return pairs[np.asarray(chain, dtype=np.int64)]
+    ys, yr = np.unique(p[:, 2], return_inverse=True)
+    w = np.ascontiguousarray(p[:, 0], dtype=np.float64)
+    x = np.ascontiguousarray(p[:, 1], dtype=np.int64)
+    yr = np.ascontiguousarray(yr, dtype=np.int64)
+    chain = np.empty(len(p), dtype=np.int64)
+    k = chain_library().amap_chain(len(p), w.ctypes.data, x.ctypes.data, yr.ctypes.data,
+                                   len(ys), chain.ctypes.data)
+    return pairs[order[chain[:k]]]
 
 
 def pairs_to_cigar_ops(pairs: np.ndarray, lx: int, ly: int) -> list[tuple[str, int]]:

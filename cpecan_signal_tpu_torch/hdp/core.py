@@ -9,71 +9,26 @@ to the port, so that the port imports nothing of the JAX package, and with a
 loader of its own: the port's copy of the native source,
 ``cpecan_signal_tpu_torch/csrc/hdp_core.cpp``, is built at first use with
 the same g++ flags into ``build/torch_kernels/`` at the repository root,
-under a name keyed by a hash of the source, the flags and the host CPU (a
-library built with -march=native runs only on the CPU it was built for).
+under a name keyed by a hash of the source, the flags and the host CPU
+(``ops/_build.host_library``).
 Neither package builds or loads the other's library.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "hdp_core.cpp"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+from ..ops._build import CSRC, host_library
+
+SOURCE = CSRC / "hdp_core.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-fopenmp", "-shared")
 _lib = None
 _lib_path: Path | None = None
 _lock = threading.Lock()
-
-
-def _cpu_key() -> str:
-    """The host CPU's model and feature flags (what -march=native reads)."""
-    try:
-        with open("/proc/cpuinfo") as fh:
-            lines = [ln for ln in fh if ln.startswith(("model name", "flags"))]
-        return "".join(sorted(set(lines)))
-    except OSError:
-        return platform.machine() + platform.processor()
-
-
-def library_path() -> Path:
-    """Path of the shared library for this source, these flags and this CPU."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    h.update(_cpu_key().encode())
-    return BUILD_DIR / f"libhdp_core_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile csrc/hdp_core.cpp with g++ unless a library for this source,
-    these flags and this CPU exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
 
 
 def _load_lib():
@@ -81,7 +36,7 @@ def _load_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        path = build()
+        path = host_library(SOURCE.name, CXX_FLAGS)
         lib = ctypes.CDLL(str(path))
         i64p = ctypes.POINTER(ctypes.c_int64)
         f64p = ctypes.POINTER(ctypes.c_double)

@@ -1,10 +1,13 @@
-"""Build and bind the CUDA kernels of ``csrc/``.
+"""Build the native sources of ``csrc/`` and bind the CUDA kernels.
 
 At first use ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), written to ``build/torch_kernels/`` at the repository root under a
-name keyed by a hash of the sources and flags; ctypes loads it.  A library
-whose key matches is reused.  A missing ``nvcc`` or a failed build raises.
+name keyed by a hash of the sources and flags; ctypes loads it.  The host
+sources (``csrc/*.cpp``) are built one library each by ``g++``
+(``host_library``), keyed by the source, the flags and the host CPU.  A
+library whose key matches is reused.  A missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -73,26 +77,61 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfb_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists."""
-    out = library_path()
-    if out.exists():
-        return out
+def _compile(cmd: list[str], out: Path) -> Path:
+    """Run ``cmd`` with ``-o <temporary>`` appended and move the result to
+    ``out``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    cmd = [*cmd, "-o", tmp]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    return _compile([_nvcc(), *NVCC_FLAGS, *sources], out)
+
+
+def _cpu_key() -> str:
+    """The host CPU's model and feature flags (what -march=native reads)."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            lines = [ln for ln in fh if ln.startswith(("model name", "flags"))]
+        return "".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine() + platform.processor()
+
+
+def host_library_path(name: str, flags: tuple[str, ...]) -> Path:
+    """Path of the library of ``csrc/<name>`` for these flags and this CPU
+    (a library built with -march=native runs only on the CPU it was built
+    for)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update((CSRC / name).read_bytes())
+    h.update(_cpu_key().encode())
+    return BUILD_DIR / f"lib{Path(name).stem}_{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str, flags: tuple[str, ...]) -> Path:
+    """Compile ``csrc/<name>`` with g++ and ``flags`` unless a library for
+    this source, these flags and this CPU exists."""
+    out = host_library_path(name, flags)
+    if out.exists():
+        return out
+    return _compile(["g++", *flags, str(CSRC / name)], out)
 
 
 def bind(path: Path, names=None) -> ctypes.CDLL:

@@ -79,40 +79,48 @@ def chunk_alignments(records: list[CigarRecord], max_bases: int = 1_000_000
     return [c for c in chunks if c]
 
 
-def _chunk_tallies(chunk, seqs, params, hmm, device, timing=None) -> DiscreteHmm:
+def _chunk_tallies(chunk, seqs, params, hmm, device, timing=None,
+                   per_record=None) -> DiscreteHmm:
     """Device E-step over one chunk: every record's split jobs in one set of
     symbol-lane buckets; per-job tallies summed in job order."""
     from .realign import record_expectations
 
     acc = DiscreteHmm.empty(5, SYMBOL_NUMBER, pseudocount=0.0)
-    record_expectations(chunk, seqs, params, hmm, acc, device=device, timing=timing)
+    record_expectations(chunk, seqs, params, hmm, acc, device=device, timing=timing,
+                        per_record=per_record)
     return acc
 
 
-def _chunk_tallies_host(chunk, seqs, params, hmm, device, timing=None) -> DiscreteHmm:
+def _chunk_tallies_host(chunk, seqs, params, hmm, device, timing=None,
+                        per_record=None) -> DiscreteHmm:
     """f64 oracle E-step over one chunk's records, record by record (the
     cPecanRealign --outputExpectations worker, cPecanRealign.c:584-588)."""
     from .realign import realign_record
 
     acc = DiscreteHmm.empty(5, SYMBOL_NUMBER, pseudocount=0.0)
     for rec in chunk:
-        realign_record(rec, seqs, params, hmm=hmm, expectations=acc, device=device)
+        one = DiscreteHmm.empty(5, SYMBOL_NUMBER, pseudocount=0.0)
+        realign_record(rec, seqs, params, hmm=hmm, expectations=one, device=device)
+        acc.add(one)
+        if per_record is not None:
+            per_record.append((one.transitions, one.emissions, one.likelihood))
     return acc
 
 
 def _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing=None,
-                      engine: str = "pallas") -> DiscreteHmm:
+                      engine: str = "pallas", per_record=None) -> DiscreteHmm:
     """Full E-step: per-chunk tallies (with several processes, this rank's
     chunks only) as rows of a table, the table summed across the ranks,
     then the rows added in chunk order (the reference's follow-on merge,
     cPecanEm.py:182-209): the same sum, bit for bit, for any process
-    count."""
+    count.  ``per_record`` (a list) gains each record's own (trans, emiss,
+    likelihood), this rank's chunks in chunk and record order."""
     S, n = 5, SYMBOL_NUMBER
     table = np.zeros((len(trial_chunks), S * S + S * n * n + 1))
     tallies = _chunk_tallies_host if engine == "host" else _chunk_tallies
     for ci in range(distributed.process_index(), len(trial_chunks),
                     distributed.process_count()):
-        a = tallies(trial_chunks[ci], seqs, params, hmm, device, timing)
+        a = tallies(trial_chunks[ci], seqs, params, hmm, device, timing, per_record)
         table[ci] = np.concatenate([a.transitions.ravel(), a.emissions.ravel(),
                                     [a.likelihood]])
     (table,) = distributed.allreduce_sum(table)
@@ -121,6 +129,23 @@ def _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing=None,
         acc.transitions += row[:S * S].reshape(S, S)
         acc.emissions += row[S * S:S * S + S * n * n].reshape(S, n, n)
         acc.likelihood += float(row[-1])
+    return acc
+
+
+def em_iteration(chunks, seqs, params, hmm: DiscreteHmm, device, timing=None,
+                 engine: str = "pallas", tie: bool = False,
+                 per_record: list | None = None) -> DiscreteHmm:
+    """One EM iteration of cPecanEm (expectationMaximisation's loop body,
+    cPecanEm.py:182-209): the E-step over every chunk with the model
+    ``hmm``, then the M-step, ``normalize`` (and ``tie_emissions`` with
+    ``tie``).  Returns the next model, whose ``likelihood`` is the
+    E-step's.  ``engine`` "pallas" or "host" as for
+    ``expectation_maximisation``; ``timing`` and ``per_record`` as for
+    ``_estep_all_chunks``."""
+    acc = _estep_all_chunks(chunks, seqs, params, hmm, device, timing, engine, per_record)
+    acc.normalize()
+    if tie:
+        tie_emissions(acc)
     return acc
 
 
@@ -174,12 +199,10 @@ def expectation_maximisation(alignment_file: str, fasta_files: list[str],
             timing: dict = {}
             launches = dict(fk.LAUNCHES)
             t0 = time.perf_counter()
-            acc = _estep_all_chunks(trial_chunks, seqs, params, hmm, device, timing, engine)
+            acc = em_iteration(trial_chunks, seqs, params, hmm, device, timing, engine,
+                               tie_emission_params)
             t_step = time.perf_counter() - t0
             launched = {k: v - launches[k] for k, v in fk.LAUNCHES.items() if v > launches[k]}
-            acc.normalize()
-            if tie_emission_params:
-                tie_emissions(acc)
             running.append(acc.likelihood)
             log(f"em - trial {trial} iteration {it}: E-step {t_step:.4f} s, "
                 f"{timing.get('buckets', 0)} buckets, launches {launched}, "

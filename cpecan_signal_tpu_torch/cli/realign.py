@@ -328,17 +328,30 @@ def realign_records_batched(records: list[CigarRecord], seqs: dict[str, str],
 
 def record_expectations(records: list[CigarRecord], seqs: dict[str, str],
                         params: AlignmentParams, hmm: DiscreteHmm | None, acc: DiscreteHmm,
-                        *, device: torch.device, timing: dict | None = None) -> None:
+                        *, device: torch.device, timing: dict | None = None,
+                        per_record: list | None = None) -> None:
     """Add the records' fiveState EM tallies to ``acc``, job by job in job
-    order (the --outputExpectations worker, cPecanRealign.c:584-588)."""
+    order (the --outputExpectations worker, cPecanRealign.c:584-588).
+    ``timing`` gains the seconds of the heads and splits ("head", with
+    "head.stage" and "head.split") and the device E-step's spans and
+    counters (``discrete_expectations_batched``).  ``per_record`` (a list)
+    gains each record's own (trans, emiss, likelihood), in record order:
+    its jobs' tallies summed in job order."""
     from ..em.discrete import discrete_expectations_batched
 
-    _heads, _spans, jobs = record_jobs(records, seqs, params, hmm, timing)
-    for trans, emiss, lik in discrete_expectations_batched(jobs, device=device,
-                                                           timing=timing):
+    with timed("head", timing):
+        _heads, spans, jobs = record_jobs(records, seqs, params, hmm, timing)
+    results = discrete_expectations_batched(jobs, device=device, timing=timing)
+    for trans, emiss, lik in results:
         acc.transitions += trans
         acc.emissions += emiss
         acc.likelihood += lik
+    if per_record is not None:
+        for span in spans:
+            mine = results[span]
+            per_record.append((sum((r[0] for r in mine), np.zeros_like(acc.transitions)),
+                               sum((r[1] for r in mine), np.zeros_like(acc.emissions)),
+                               sum((r[2] for r in mine), 0.0)))
 
 
 def main(argv=None):

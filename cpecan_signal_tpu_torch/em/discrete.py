@@ -18,6 +18,14 @@ order.  Each job's tallies are computed without atomics, in an order that
 depends only on the job (one block per problem in the kernel, adjacent-pair
 sums over its lanes and diagonals here), so they are the same bit for bit
 however the jobs are bucketed, and from run to run.
+
+The E-step's spans and counters (``utils/observability``): the host
+staging ("nem.stage": every job's codes and window band, the bucketing and
+each bucket's upload), the host blocked on the card for the results
+("nem.device_wait"), and per bucket "nem.jobs", "nem.diagonals" (each job's
+own), "nem.cells_band" (its true band's cells), "nem.cells_lane" (B x Dp x
+W, the launch's lanes) and "nem.sm_slots" (SMs x the recursion blocks an SM
+holds x Dp; 0 off a card).
 """
 
 from __future__ import annotations
@@ -32,9 +40,10 @@ from ..engine import pipeline as pp
 from ..engine import readpath
 from ..engine.align import AlignedPairs, SplitJob, collect_symbol_split_jobs  # noqa: F401
 from ..ops import fb_kernels as fk
-from ..utils.observability import counters
+from ..utils.observability import counters, timed
 
 N_SYM = 4
+E_CHANNELS = 3       # the symbol lane's E: gapX, match, gapY (readpath.symbol_emissions)
 
 
 def _to_state_pgroups(plan) -> tuple[tuple[int, ...], ...]:
@@ -74,14 +83,15 @@ def symbol_pair_tallies(p: torch.Tensor, w0: torch.Tensor, cxp: torch.Tensor,
     return torch.stack(tallies, dim=2)
 
 
-def em_bucket_step(plan, W: int, Dp: int, staged, chunk, device: torch.device
-                   ) -> torch.Tensor:
-    """One bucket's E-step on ``device``: staging and upload, E gathered on
-    the device, forward and stage-4 backward with one posterior channel per
-    to-state, the symbol-pair tallies.  Returns (B, 128 + S * 16) f32
-    [stats | emission tallies] per problem; the bucket's E, F and P are
-    freed on return."""
-    bufs, _n_cy = readpath.stage_symbol_bucket(staged, chunk, device)
+def em_bucket_step(plan, W: int, Dp: int, staged, chunk, device: torch.device,
+                   timing: dict | None = None) -> torch.Tensor:
+    """One bucket's E-step on ``device``: staging and upload (span
+    "nem.stage"), E gathered on the device, forward and stage-4 backward
+    with one posterior channel per to-state, the symbol-pair tallies.
+    Returns (B, 128 + S * 16) f32 [stats | emission tallies] per problem;
+    the bucket's E, F and P are freed on return."""
+    with timed("nem.stage", timing):
+        bufs, _n_cy = readpath.stage_symbol_bucket(staged, chunk, device)
     sj0 = staged[chunk[0]][1]
     n_tp, S = len(sj0.tp_scalar), len(sj0.start)
     prob, cxp, cyp, _real = readpath.symbol_problem(W, Dp, n_tp, S, *bufs)
@@ -93,23 +103,41 @@ def em_bucket_step(plan, W: int, Dp: int, staged, chunk, device: torch.device
     return torch.cat([stats, emiss.reshape(len(chunk), -1)], dim=1)
 
 
+def _bucket_counts(staged, chunk, W: int, Dp: int) -> dict:
+    """A bucket's counters, from its jobs' window bands."""
+    bands = [staged[si][1].wband for si in chunk]
+    return {"nem.jobs": len(chunk), "nem.diagonals": sum(b.n_diagonals for b in bands),
+            "nem.cells_band": sum(int(((b.xmyR - b.xmyL) // 2 + 1).sum()) for b in bands),
+            "nem.cells_lane": len(chunk) * Dp * W}
+
+
 def discrete_expectations_batched(jobs: list[SplitJob], *, device: torch.device,
                                   width_multiple: int = 128, timing: dict | None = None):
     """Every job's fiveState EM tallies through the device path, bucket by
     bucket (each freed before the next is built), collected with one copy.
     Returns a list (per job, input order) of (trans (S, S) f64, emiss (S, 4,
-    4) f64, likelihood float).  ``timing`` gains the number of buckets."""
-    staged = []
-    for i, j in enumerate(jobs):
-        st = readpath.stage_symbol_job(j, smooth_band(j.band, width_multiple=width_multiple))
-        if st is None:
-            raise ValueError(f"job {i} ({j.sm.spec.name}) has no bound symbol machine")
-        staged.append((i, *st))
-    buckets = readpath.symbol_buckets(staged)
-    pending = [(plan, chunk, em_bucket_step(plan, W, Dp, staged, chunk, device))
-               for plan, W, Dp, chunk in buckets]
+    4) f64, likelihood float).  ``timing`` gains the number of buckets and
+    the spans and counters of the module's docstring."""
+    with timed("nem.stage", timing):
+        staged = []
+        for i, j in enumerate(jobs):
+            st = readpath.stage_symbol_job(j, smooth_band(j.band,
+                                                          width_multiple=width_multiple))
+            if st is None:
+                raise ValueError(f"job {i} ({j.sm.spec.name}) has no bound symbol machine")
+            staged.append((i, *st))
+        buckets = readpath.symbol_buckets(staged)
+    pending = []
+    for plan, W, Dp, chunk in buckets:
+        pending.append((plan, chunk, em_bucket_step(plan, W, Dp, staged, chunk, device,
+                                                    timing)))
+        for name, n in _bucket_counts(staged, chunk, W, Dp).items():
+            counters.add(name, n, timing)
+        counters.add("nem.sm_slots", Dp * fk.sm_slots_per_diagonal(
+            device, plan.n_states, E_CHANNELS, W), timing)
     counters.add("buckets", len(buckets), timing)
-    packed_of = readpath._collect_packed([h for _p, _c, h in pending])
+    with timed("nem.device_wait", timing):
+        packed_of = readpath._collect_packed([h for _p, _c, h in pending])
     out = [None] * len(jobs)
     for (plan, chunk, _h), packed in zip(pending, packed_of):
         packed = packed.astype(np.float64)

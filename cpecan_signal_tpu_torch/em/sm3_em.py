@@ -30,7 +30,6 @@ diagonal count Dp: what a launch could hold while it runs).
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 from dataclasses import dataclass
@@ -227,17 +226,6 @@ def bucket_from_jax(bucket, device: torch.device) -> SM3EmBucket:
                        counts=_bucket_counts(int(bucket.W), bands))
 
 
-@functools.cache
-def _sm_slots_per_diagonal(device: torch.device, S: int, W: int) -> int:
-    """SMs x the recursion blocks an SM holds at (S, W), on a CUDA device;
-    0 elsewhere.  E has emissions_sm3's 3 channels."""
-    if device.type != "cuda":
-        return 0
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * fk.recursion_blocks_per_sm(S, 3, W, index)
-
-
 def _sm3_iteration_arrays(transitions: dict | None):
     """(tp_vec, start, ragged_start, end, ragged_end) f32 for a transitions
     dict, computed through the same _build_plan the problems used, so the
@@ -297,7 +285,8 @@ def sm3_em_step(buckets: list[SM3EmBucket], transitions: dict | None = None,
         trans, kmer, lik = bucket_step(b, gapx_t, tp_t, start, end)
         for name, n in b.counts.items():
             counters.add(name, n)
-        slots = _sm_slots_per_diagonal(device, b.plan.n_states, b.W)
+        # E has emissions_sm3's 3 channels
+        slots = fk.sm_slots_per_diagonal(device, b.plan.n_states, 3, b.W)
         if slots:
             counters.add("em.sm_slots", slots * b.Dp)
         trans_sum += trans.double()

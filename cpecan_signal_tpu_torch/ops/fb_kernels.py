@@ -94,6 +94,18 @@ def recursion_blocks_per_sm(S: int, C: int, W: int, device_index: int) -> int:
     return min(blocks)
 
 
+@functools.cache
+def sm_slots_per_diagonal(device: torch.device, S: int, C: int, W: int) -> int:
+    """SMs x the recursion blocks an SM holds at (S, C, W) on a CUDA device
+    (``recursion_blocks_per_sm``): what a launch could hold at once, per
+    diagonal it steps; 0 elsewhere."""
+    if device.type != "cuda":
+        return 0
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * recursion_blocks_per_sm(S, C, W, index)
+
+
 # the emissions kernel (csrc/fb_sm3.cu emit_row_floats, emit_threads,
 # emit_smem; reported on the card by fb_emissions_config)
 EMIT_TILE = 64               # diagonals of an emissions block

@@ -10,7 +10,12 @@
     sum to their parents, beside the batch's own;
   * (e) an EM step adds each bucket's problems, diagonals, lane cells and
     band cells to the counters, as counted by hand from the jobs, and no SM
-    slots on the CPU.
+    slots on the CPU;
+  * (f) the nucleotide E-step (``record_expectations``) records its heads,
+    its staging and its wait on the device, and adds each bucket's jobs,
+    diagonals, band cells, lane cells (B x Dp x W) and, on the CPU, no SM
+    slots; ``realign_records_batched`` records none of its ``nem.*`` spans
+    and counters.
 """
 
 import numpy as np
@@ -18,12 +23,15 @@ import pytest
 import torch
 
 from cpecan_signal_tpu_torch.anchor.seed_chain import get_anchor_pairs
-from cpecan_signal_tpu_torch.cli.realign import realign_records_batched
+from cpecan_signal_tpu_torch.cli.realign import (realign_records_batched, record_expectations,
+                                                  record_jobs)
 from cpecan_signal_tpu_torch.constants import MODEL_PARAMS, NUM_OF_KMERS
 from cpecan_signal_tpu_torch.core.amap import pairs_to_cigar_ops
 from cpecan_signal_tpu_torch.core.kmers import sequence_kmer_ranks
 from cpecan_signal_tpu_torch.core.window import smooth_band
 from cpecan_signal_tpu_torch.em import sm3_em
+from cpecan_signal_tpu_torch.em.accumulators import DiscreteHmm
+from cpecan_signal_tpu_torch.engine import readpath
 from cpecan_signal_tpu_torch.io.cigar import CigarRecord
 from cpecan_signal_tpu_torch.io.npread import ScaleParams
 from cpecan_signal_tpu_torch.models.params import AlignmentParams
@@ -198,3 +206,43 @@ def test_em_step_counts_its_buckets(monkeypatch):
     got = {n: _count(n) - before[n] for n in names}
     assert got == want
     assert sum(b.Dp * b.counts["em.problems"] for b in buckets) > want["em.diagonals"]
+
+
+NEM_SPANS = ("head", "nem.stage", "nem.device_wait")
+NEM_COUNTS = ("nem.jobs", "nem.diagonals", "nem.cells_band", "nem.cells_lane", "nem.sm_slots")
+
+
+def test_nucleotide_estep_spans_and_counters():
+    recs, seqs = _records(np.random.default_rng(5), 3, 300)
+    params = AlignmentParams()
+    _heads, _spans, jobs = record_jobs(recs, seqs, params, None)
+    staged = [(i, *readpath.stage_symbol_job(j, smooth_band(j.band, width_multiple=128)))
+              for i, j in enumerate(jobs)]
+    buckets = readpath.symbol_buckets(staged)
+    want = {"nem.jobs": len(jobs),
+            "nem.diagonals": sum(sj.wband.n_diagonals for _i, sj, _p in staged),
+            "nem.cells_band": sum(int(j.band.widths.sum()) for j in jobs),
+            "nem.cells_lane": sum(len(chunk) * Dp * W for _p, W, Dp, chunk in buckets),
+            "nem.sm_slots": 0}
+    before = {n: _count(n) for n in NEM_COUNTS}
+    timing = {}
+    record_expectations(recs, seqs, params, None, DiscreteHmm.empty(5, 4), device=CPU,
+                        timing=timing)
+    for key in (*NEM_SPANS, *HEADS):
+        assert timing[key] > 0, key
+    assert _sums_to(sum(timing[k] for k in HEADS), timing["head"])
+    assert {n: timing[n] for n in NEM_COUNTS} == want
+    assert {n: _count(n) - before[n] for n in NEM_COUNTS} == want
+    assert timing["buckets"] == len(buckets)
+    # lane fill at most 100 %
+    assert 0 < timing["nem.cells_band"] <= timing["nem.cells_lane"]
+
+
+def test_realign_records_no_nucleotide_estep_spans():
+    recs, seqs = _records(np.random.default_rng(3), 2, 300)
+    names = [f"time.{n}.count" for n in NEM_SPANS[1:]] + list(NEM_COUNTS)
+    before = {n: _count(n) for n in names}
+    timing = {}
+    realign_records_batched(recs, seqs, AlignmentParams(), device=CPU, timing=timing)
+    assert not [k for k in timing if k.startswith("nem.")]
+    assert {n: _count(n) for n in names} == before

@@ -142,10 +142,12 @@ def _sm5_from_hmm_asymmetric(hmm: DiscreteHmm):
 
 
 def stage_record_head(rec: CigarRecord, seqs: dict[str, str],
-                      params: AlignmentParams, hmm: DiscreteHmm | None):
+                      params: AlignmentParams, hmm: DiscreteHmm | None,
+                      timing: dict | None = None):
     """realign_record's input prep: rebase to forward strand, CIGAR ->
     anchors, mismatch filter (cPecanRealign.c:556-583).  Returns
-    (sub_x, sub_y, anchors_all, filtered_anchors, make_sm)."""
+    (sub_x, sub_y, anchors_all, filtered_anchors, make_sm).  ``timing``
+    gains the count of anchors the CIGAR gave ("head.anchors")."""
     seq_x = seqs[rec.contig1]
     seq_y = seqs[rec.contig2]
     flip1, flip2 = not rec.strand1, not rec.strand2
@@ -163,10 +165,11 @@ def stage_record_head(rec: CigarRecord, seqs: dict[str, str],
         s2, e2 = e2, s2
     anchors_all = cigar_to_anchor_pairs(s1, s2, rec.ops,
                                         params.constraint_diagonal_trim)
-    # mismatch filter (cPecanRealign matchFn :268-272)
-    keep = [i for i, (x, y) in enumerate(anchors_all.tolist())
-            if sub_x[x].upper() == sub_y[y].upper() and sub_x[x].upper() != "N"]
-    anchors = anchors_all[keep] if len(keep) else anchors_all[:0]
+    counters.add("head.anchors", len(anchors_all), timing)
+    # mismatch filter (cPecanRealign matchFn :268-272), on upper-cased bytes
+    bx = np.frombuffer(sub_x.upper().encode("ascii"), dtype=np.uint8)[anchors_all[:, 0]]
+    by = np.frombuffer(sub_y.upper().encode("ascii"), dtype=np.uint8)[anchors_all[:, 1]]
+    anchors = anchors_all[(bx == by) & (bx != ord("N"))]
     anchors = filter_to_remove_overlap(anchors[np.lexsort(
         (anchors[:, 1], anchors[:, 0]))]) if len(anchors) else anchors
 
@@ -275,15 +278,17 @@ def record_jobs(records: list[CigarRecord], seqs: dict[str, str],
                 timing: dict | None = None):
     """Every record's head and split jobs, flattened.  Returns (heads
     [(sub_x, sub_y, anchors_all)], spans [slice into jobs], jobs).
-    ``timing`` gains the seconds of the heads' staging ("head.stage") and
-    of their banding and splits ("head.split")."""
+    ``timing`` gains the seconds of the heads' staging ("head.stage": CIGAR
+    to anchors, mismatch and overlap filters) and of their banding and
+    splits ("head.split"), and the count of anchors staged
+    ("head.anchors")."""
     from ..em.discrete import collect_symbol_split_jobs
 
     heads, spans, jobs = [], [], []
     for rec in records:
         with timed("head.stage", timing):
             sub_x, sub_y, anchors_all, anchors, make_sm = stage_record_head(rec, seqs, params,
-                                                                            hmm)
+                                                                            hmm, timing)
         with timed("head.split", timing):
             rj = collect_symbol_split_jobs(make_sm, sub_x, sub_y, anchors, params,
                                            ragged_left=True, ragged_right=True)

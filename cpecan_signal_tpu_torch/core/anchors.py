@@ -8,7 +8,9 @@ Host-side NumPy mirrors of:
   - getSplitPoints                  pairwiseAligner.c:1289-1340
 
 Copied from ``cpecan_signal_tpu/core/anchors.py`` with its imports made relative
-to the port, so that the port imports nothing of the JAX package.
+to the port, so that the port imports nothing of the JAX package.  The
+overlap filter, the CIGAR conversion and the split points work on whole
+arrays instead of a Python loop an anchor; their results are the same.
 """
 
 from __future__ import annotations
@@ -24,26 +26,41 @@ def filter_to_remove_overlap(pairs: np.ndarray) -> np.ndarray:
     Two-pass filter: backwards, keep pairs strictly below the running minima;
     forwards, emit pairs strictly above the running maxima that survived pass 1.
     Input must be lexicographically sorted (x, then y).
+
+    Pass 1 is a strict suffix minimum, pass 2 a strict prefix maximum over
+    every earlier pair, kept or not; a pair passes pass 1 where any pair of
+    the same value does (the reference's set of kept values).
     """
     pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
-    n = len(pairs)
-    keep_back = np.zeros(n, dtype=bool)
-    px = py = np.iinfo(np.int64).max
-    for i in range(n - 1, -1, -1):
-        x, y = pairs[i]
-        if x < px and y < py:
-            keep_back[i] = True
-        px = min(px, x)
-        py = min(py, y)
-    out = []
-    px = py = np.iinfo(np.int64).min
-    back_set = {tuple(p) for p in pairs[keep_back]}
-    for x, y in pairs:
-        if x > px and y > py and (x, y) in back_set:
-            out.append((x, y))
-        px = max(px, x)
-        py = max(py, y)
-    return np.asarray(out, dtype=np.int64).reshape(-1, 2)
+    x, y = pairs[:, 0].copy(), pairs[:, 1].copy()
+    n = len(x)
+    big, small = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    after_x, after_y = np.full(n, big), np.full(n, big)      # strict suffix minima
+    after_x[:-1] = np.minimum.accumulate(x[::-1])[::-1][1:]
+    after_y[:-1] = np.minimum.accumulate(y[::-1])[::-1][1:]
+    before_x, before_y = np.full(n, small), np.full(n, small)  # strict prefix maxima
+    before_x[1:] = np.maximum.accumulate(x)[:-1]
+    before_y[1:] = np.maximum.accumulate(y)[:-1]
+    keep_back = (x < after_x) & (y < after_y)
+    # a pair counts as kept in pass 1 where any pair of its value is: runs of
+    # equal pairs once sorted (the input's own order where it is sorted)
+    order = None if _is_sorted(x, y) else np.lexsort((y, x))
+    sx, sy, kept = (x, y, keep_back) if order is None else (x[order], y[order], keep_back[order])
+    new_run = np.ones(n, dtype=bool)
+    new_run[1:] = (sx[1:] != sx[:-1]) | (sy[1:] != sy[:-1])
+    run = np.cumsum(new_run) - 1
+    run_kept = np.zeros(n, dtype=bool)
+    run_kept[run[kept]] = True
+    in_back = run_kept[run]
+    if order is not None:
+        in_back[order] = in_back.copy()
+    keep = in_back & (x > before_x) & (y > before_y)
+    return pairs[np.flatnonzero(keep)]
+
+
+def _is_sorted(x: np.ndarray, y: np.ndarray) -> bool:
+    """Whether the pairs (x, y) are in lexicographic (x, then y) order."""
+    return bool(((x[1:] > x[:-1]) | ((x[1:] == x[:-1]) & (y[1:] >= y[:-1]))).all())
 
 
 def cigar_to_anchor_pairs(start1: int, start2: int, ops: list[tuple[str, int]],
@@ -55,21 +72,23 @@ def cigar_to_anchor_pairs(start1: int, start2: int, ops: list[tuple[str, int]],
     pairwiseAligner.c:1039-1063): 'M' advances both coordinates, 'D' advances
     seq1 only (gap in seq2), 'I' advances seq2 only (gap in seq1).
     """
-    j, k = start1, start2
-    pairs = []
-    for op, length in ops:
-        if op == "M":
-            for l in range(trim, length - trim):
-                pairs.append((j + l, k + l))
-            j += length
-            k += length
-        elif op == "D":
-            j += length
-        elif op == "I":
-            k += length
-        else:
+    for op, _length in ops:
+        if op not in ("M", "D", "I"):
             raise ValueError(f"unknown cigar op {op!r}")
-    return np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    kind = np.array([op for op, _ in ops], dtype="<U1")
+    length = np.array([n for _, n in ops], dtype=np.int64)
+    match = kind == "M"
+    step_x = np.where(match | (kind == "D"), length, 0)
+    step_y = np.where(match | (kind == "I"), length, 0)
+    j = start1 + np.cumsum(step_x) - step_x          # each op's start
+    k = start2 + np.cumsum(step_y) - step_y
+    count = np.where(match, np.maximum(length - 2 * trim, 0), 0)
+    total = int(count.sum())
+    if total == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    # within-block offsets trim, trim + 1, ... of each match block
+    offset = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(count) - count, count) + trim
+    return np.stack([np.repeat(j, count) + offset, np.repeat(k, count) + offset], axis=1)
 
 
 def remap_anchor_pairs(pairs: np.ndarray, event_map: np.ndarray) -> np.ndarray:
@@ -108,39 +127,33 @@ def get_split_points(anchor_pairs: np.ndarray, lX: int, lY: int,
     unanchored middle of the gap exactly like the reference's area split
     (ragged ends, uncovered center)."""
     anchors = np.asarray(anchor_pairs, dtype=np.int64).reshape(-1, 2)
-    split_points: list[tuple[int, int, int, int]] = []
-    x1 = y1 = 0
-    x2 = y2 = 0
-
-    def check_split(x1_, y1_, x3, y3, skip_block):
-        nonlocal x1, y1
-        lX2 = x3 - x2
-        lY2 = y3 - y2
-        wide = (max_gap_min_dim is not None
-                and min(lX2, lY2) > max_gap_min_dim)
-        if lX2 * lY2 > split_matrix_bigger_than_this or wide:
-            max_len = int(math.sqrt(split_matrix_bigger_than_this))
-            if wide:
-                # clamp: a degenerate max_gap_min_dim < 2 must not produce
-                # zero-size half-rectangles
-                max_len = min(max_len, max(max_gap_min_dim // 2, 1))
-            hX = min(lX2 // 2, max_len)
-            hY = min(lY2 // 2, max_len)
-            if not skip_block:
-                split_points.append((x1, y1, x2 + hX, y2 + hY))
-            x1 = x3 - hX
-            y1 = y3 - hY
-            return True
-        return False
-
-    for i, (x3, y3) in enumerate(anchors):
-        check_split(x1, y1, int(x3), int(y3), ragged_left and i == 0)
-        assert x3 >= x2 and y3 >= y2 and x3 < lX and y3 < lY
-        x2 = int(x3) + 1
-        y2 = int(y3) + 1
-    did_split = check_split(x1, y1, lX, lY, ragged_left and len(anchors) == 0)
+    n = len(anchors)
+    # the gap before each anchor, and before the end (lX, lY): from one past
+    # the previous anchor (from 0 before the first)
+    ends = np.concatenate([anchors, np.array([[lX, lY]], dtype=np.int64)])
+    prev = np.concatenate([np.zeros((1, 2), dtype=np.int64), anchors + 1])
+    gx, gy = ends[:, 0] - prev[:, 0], ends[:, 1] - prev[:, 1]
+    wide = (np.minimum(gx, gy) > max_gap_min_dim if max_gap_min_dim is not None
+            else np.zeros(n + 1, dtype=bool))
+    split = (gx * gy > split_matrix_bigger_than_this) | wide
+    assert ((anchors >= prev[:n]).all(axis=1)
+            & (anchors[:, 0] < lX) & (anchors[:, 1] < lY)).all()
+    at = np.flatnonzero(split)
+    max_len = int(math.sqrt(split_matrix_bigger_than_this))
+    # clamp: a degenerate max_gap_min_dim < 2 must not produce zero-size
+    # half-rectangles
+    cap = np.where(wide[at], min(max_len, max((max_gap_min_dim or 0) // 2, 1)), max_len)
+    hx, hy = np.minimum(gx[at] // 2, cap), np.minimum(gy[at] // 2, cap)
+    x1 = np.concatenate([[0], ends[at, 0] - hx])     # each rectangle's start
+    y1 = np.concatenate([[0], ends[at, 1] - hy])
+    split_points: list[tuple[int, int, int, int]] = list(zip(
+        x1[:-1].tolist(), y1[:-1].tolist(), (prev[at, 0] + hx).tolist(),
+        (prev[at, 1] + hy).tolist()))
+    if ragged_left and len(at) and at[0] == 0:
+        split_points = split_points[1:]          # skip_block on the first gap
+    did_split = len(at) > 0 and at[-1] == n
     if not did_split or not ragged_right:
-        split_points.append((x1, y1, lX, lY))
+        split_points.append((int(x1[-1]), int(y1[-1]), lX, lY))
     return split_points
 
 

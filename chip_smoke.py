@@ -451,7 +451,7 @@ def emission_inputs(rng, B: int, Dp: int, W: int, device, *, random_tiles=False,
                     unaligned=False, w0_start=0, lY=None, cols=None):
     """Inputs (x0, yr0, xarr, evr) of an emissions launch on ``device``: B
     problems' x packs and event rows drawn at random, and the offsets that
-    readpath._pack_ds gives for random +-1 walks of w0 from about
+    pipeline.band_scalars gives for random +-1 walks of w0 from about
     ``w0_start`` (band offsets; lY drawn from ``lY``, default Dp/4..Dp/2).
     The rows hold ``cols`` = (lXp, lYp) columns, by default Dp / 2 and Dp
     and two windows on each side, in 16-byte units (``unaligned``: 1 and 3
@@ -461,7 +461,7 @@ def emission_inputs(rng, B: int, Dp: int, W: int, device, *, random_tiles=False,
     import numpy as np
     import torch
 
-    from cpecan_signal_tpu_torch.engine import readpath as rp
+    from cpecan_signal_tpu_torch.engine import pipeline as pp
     from cpecan_signal_tpu_torch.ops import fb_kernels as fk
 
     lXp, lYp = cols or (Dp // 8 * 4 + 4 * W, Dp // 4 * 4 + 4 * W)
@@ -471,9 +471,9 @@ def emission_inputs(rng, B: int, Dp: int, W: int, device, *, random_tiles=False,
     steps[:, 0] = 0
     w0 = (w0_start + 2 * rng.integers(-20, 20, (B, 1)) + np.cumsum(steps, 1)).astype(np.int32)
     lo, hi = lY or (Dp // 4, Dp // 2)
-    _ds, x0, yr0 = rp._pack_ds(torch.from_numpy(np.stack([w0, w0, w0 + 2 * W], 1)),
-                               torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32)),
-                               W, lXp, lYp)
+    _ds, x0, yr0 = pp.band_scalars(torch.from_numpy(np.stack([w0, w0, w0 + 2 * W], 1)),
+                                   torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32)),
+                                   W, lXp, lYp)
     if random_tiles:
         odd = torch.from_numpy((np.arange(Dp + 1) // fk.emission_config(W)[0]) % 2 == 1)
         n_odd = int(odd.sum())
@@ -1125,11 +1125,8 @@ def five_problems(nuc, W: int, Dp: int, expansion: int, B: int, device):
         wb = smooth_band(jobs[0].band, width_multiple=W)
         if len(jobs) == 1 and wb.W == W and wb.n_diagonals + 2 <= Dp:
             staged.append((i, *readpath.stage_symbol_job(jobs[0], wb)))
-    bufs, _n = readpath.stage_symbol_bucket(staged, list(range(B)), device)
-    sj0 = staged[0][1]
-    prob, _cx, _cy, _real = readpath.symbol_problem(W, Dp, len(sj0.tp_scalar),
-                                                    len(sj0.start), *bufs)
-    return staged[0][2], prob
+    tables, bucket, _n = readpath.stage_symbol_bucket(staged, list(range(B)), Dp, device)
+    return staged[0][2], readpath.symbol_problem(W, tables, bucket)
 
 
 def phase_five_kernels(nuc, device, stats) -> None:

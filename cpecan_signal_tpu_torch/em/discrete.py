@@ -5,7 +5,7 @@ The reference distributes nucleotide EM as jobs that each run
 ``cPecanRealign --outputExpectations`` over an alignment chunk of at most
 1 Mb (cPecanEm.py:107-242, cPecanRealign.c:556-645).  Here every CIGAR
 record's split jobs are stacked into buckets of the symbol lane
-(engine/readpath.py: codes and window stream up, E gathered on the device);
+(engine/readpath.py: codes and window rows up, E gathered on the device);
 the stage-4 backward kernel's stats lanes carry the transition tallies and
 the likelihood, and its edge-group posterior channels (``pgroups``, one per
 to-state) the per-state posterior grids, from which the per-(state,
@@ -29,8 +29,6 @@ holds x Dp; 0 off a card).
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -91,15 +89,13 @@ def em_bucket_step(plan, W: int, Dp: int, staged, chunk, device: torch.device,
     Returns (B, 128 + S * 16) f32 [stats | emission tallies] per problem;
     the bucket's E, F and P are freed on return."""
     with timed("nem.stage", timing):
-        bufs, _n_cy = readpath.stage_symbol_bucket(staged, chunk, device)
-    sj0 = staged[chunk[0]][1]
-    n_tp, S = len(sj0.tp_scalar), len(sj0.start)
-    prob, cxp, cyp, _real = readpath.symbol_problem(W, Dp, n_tp, S, *bufs)
+        tables, bucket, _n_cy = readpath.stage_symbol_bucket(staged, chunk, Dp, device)
+    prob = readpath.symbol_problem(W, tables, bucket)
     p, _totals, _exits, _gacc, stats = pp.run_window(plan, W, prob, stages=4,
                                                      pgroups=_to_state_pgroups(plan))
     w0 = prob.diag_scalars[:, :Dp, 0, fk.DS_W0]
     del prob
-    emiss = symbol_pair_tallies(p, w0, cxp, cyp)
+    emiss = symbol_pair_tallies(p, w0, bucket.cx, bucket.cy)
     return torch.cat([stats, emiss.reshape(len(chunk), -1)], dim=1)
 
 
@@ -137,7 +133,7 @@ def discrete_expectations_batched(jobs: list[SplitJob], *, device: torch.device,
             device, plan.n_states, E_CHANNELS, W), timing)
     counters.add("buckets", len(buckets), timing)
     with timed("nem.device_wait", timing):
-        packed_of = readpath._collect_packed([h for _p, _c, h in pending])
+        packed_of = pp.to_host([h for _p, _c, h in pending])
     out = [None] * len(jobs)
     for (plan, chunk, _h), packed in zip(pending, packed_of):
         packed = packed.astype(np.float64)
@@ -154,23 +150,6 @@ def discrete_expectations_batched(jobs: list[SplitJob], *, device: torch.device,
 # ---------------------------------------------------------------------------
 # Batched realignment (posterior pairs for many CIGAR records at once)
 # ---------------------------------------------------------------------------
-
-@dataclass
-class StagedRecord:
-    """realign_record's head (anchors, subsequences, rebase), held for the
-    batched posterior pass and the per-record tail."""
-
-    rec: object
-    sub_x: str
-    sub_y: str
-    anchors_all: np.ndarray
-    anchors: np.ndarray
-    shift1: int
-    shift2: int
-    flip1: bool
-    flip2: bool
-    jobs: slice              # range into the flat job list
-
 
 def batched_pairs_for_records(staged_jobs: list[SplitJob], threshold: float, *,
                               device: torch.device, timing: dict | None = None

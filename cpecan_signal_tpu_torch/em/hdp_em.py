@@ -37,7 +37,7 @@ from ..engine.plan import EnginePlan, _build_plan
 from ..models.state_machines import (MATCH, SM3_NANOPORE_TRANSITIONS, SRC_MIDDLE,
                                      make_signal_sm3_hdp)
 from ..ops import fb_kernels as fk
-from .sm3_em import MAX_BUCKET, EmJob, _EmBudget, stream
+from .sm3_em import EmJob, _EmBudget, stream
 
 # at a threshold of 0 every cell, masked ones included (posterior exactly
 # 0.0), passes the >= test: the JAX package sends it to its host f64 engine,
@@ -118,34 +118,29 @@ def build_hdp_em_buckets(jobs: list[EmJob], *, device: torch.device,
     if budget is None:
         budget = _EmBudget(device)
     wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
-    groups: dict[int, list[int]] = {}
-    for i, wb in enumerate(wbands):
-        groups.setdefault(wb.W, []).append(i)
-
     cpu = torch.device("cpu")
     buckets = []
-    for W, idxs in sorted(groups.items()):
-        for lo in range(0, len(idxs), MAX_BUCKET):
-            chunk = idxs[lo:lo + MAX_BUCKET]
-            Dp = max(wbands[i].n_diagonals for i in chunk)
-            sms = [make_signal_sm3_hdp(_zero_density, jobs[i].target, jobs[i].events)
-                   for i in chunk]
-            plan, (ds, d_last, _start, _end, _tp, x0) = pp.stack_window_scalars(
-                [(sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                 for sm, i in zip(sms, chunk)], Dp, cpu)
-            rank, meanp = (np.stack(a) for a in zip(*(pp.hdp_inputs(sm, Dp + 2)
-                                                      for sm in sms)))
-            uniq = np.unique(rank)
-            remap = np.searchsorted(uniq, rank).astype(np.int32)
-            K = min(Dp * W, 4 * Dp + 512) if max_assignments is None else max_assignments
-            batch, resident = budget.place(HdpBatch(
-                ds, d_last, x0, torch.from_numpy(remap), torch.from_numpy(meanp)))
-            buckets.append(HdpEmBucket(
-                plan=plan, W=W, Dp=Dp, K=K, batch=batch, rank_orig=rank, meanp=meanp,
-                uniq=uniq, w0s=[np.asarray(wbands[i].w0, dtype=np.int64) for i in chunk],
-                ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
-                ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
-                resident=resident, device=device))
+    for W, chunk in sorted(pp.launch_groups([wb.W for wb in wbands]),
+                           key=lambda group: group[0]):
+        Dp = max(wbands[i].n_diagonals for i in chunk)
+        sms = [make_signal_sm3_hdp(_zero_density, jobs[i].target, jobs[i].events)
+               for i in chunk]
+        plan, (ds, d_last, _start, _end, _tp, x0) = pp.stack_window_scalars(
+            [(sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+             for sm, i in zip(sms, chunk)], Dp, cpu)
+        rank, meanp = (np.stack(a) for a in zip(*(pp.hdp_inputs(sm, Dp + 2)
+                                                  for sm in sms)))
+        uniq = np.unique(rank)
+        remap = np.searchsorted(uniq, rank).astype(np.int32)
+        K = min(Dp * W, 4 * Dp + 512) if max_assignments is None else max_assignments
+        batch, resident = budget.place(HdpBatch(
+            ds, d_last, x0, torch.from_numpy(remap), torch.from_numpy(meanp)))
+        buckets.append(HdpEmBucket(
+            plan=plan, W=W, Dp=Dp, K=K, batch=batch, rank_orig=rank, meanp=meanp,
+            uniq=uniq, w0s=[np.asarray(wbands[i].w0, dtype=np.int64) for i in chunk],
+            ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
+            ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
+            resident=resident, device=device))
     return buckets
 
 
@@ -158,8 +153,8 @@ def _hdp_iteration_arrays(transitions: dict | None):
     sm = make_signal_sm3_hdp(_zero_density, "ACGTACGTA", np.zeros((2, 3)), t)
     _plan, tp_scalar, cell_sources = _build_plan(sm, "exact")
     assert not cell_sources
-    return (pp._san(tp_scalar), pp._san(sm.start), pp._san(sm.ragged_start),
-            pp._san(sm.end), pp._san(sm.ragged_end))
+    return (pp.finite_f32(tp_scalar), pp.finite_f32(sm.start), pp.finite_f32(sm.ragged_start),
+            pp.finite_f32(sm.end), pp.finite_f32(sm.ragged_end))
 
 
 def bucket_step(b: HdpEmBucket, tab: torch.Tensor, g0: float, dg: float, tp_vec, start,
@@ -219,7 +214,7 @@ def hdp_em_step(buckets: list[HdpEmBucket], nhdp, transitions: dict | None,
         args = (tab, g0, dg, on(tp_vec, b.device), start, end, threshold)
         pending.append((b, args, *bucket_step(b, *args)))
     # one copy: the stats travel as their int32 bit patterns beside the cells
-    host = readpath._collect_packed([t for _b, _a, st, cells in pending
+    host = pp.to_host([t for _b, _a, st, cells in pending
                                      for t in (st.view(torch.int32), cells)])
 
     trans = np.zeros((3, 3))

@@ -50,7 +50,6 @@ from ..ops import fb_kernels as fk
 from ..parallel.distributed import ranks_sharing_device
 from ..utils.observability import counters, timed
 
-MAX_BUCKET = 64  # problems per device batch (bounds host packing memory)
 BUDGET_ENV = "CPECAN_EM_HBM_BUDGET"   # bytes of buckets kept on the card
 BUDGET_FREE_SHARE = 0.5   # default budget: this share of the card's free memory
 
@@ -173,41 +172,37 @@ def build_sm3_em_buckets(jobs: list[EmJob], *, device: torch.device,
                          width_multiple: int = 128,
                          budget: _EmBudget | None = None) -> list[SM3EmBucket]:
     """Pack jobs into width-bucketed stacked problems (once, before the EM
-    loop): one bucket per window width and MAX_BUCKET jobs, padded to the
-    chunk's longest job (Dp = its diagonal count).  ``budget`` (shared
-    across strands by the caller) decides which buckets stay on the device."""
+    loop): buckets of one window width (pipeline.launch_groups), in
+    increasing width, each padded to its longest job (Dp = its diagonal
+    count).  ``budget`` (shared across strands by the caller) decides which
+    buckets stay on the device."""
     with timed("em.build_buckets"):
         if budget is None:
             budget = _EmBudget(device)
         wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
-        groups: dict[int, list[int]] = {}
-        for i, wb in enumerate(wbands):
-            groups.setdefault(wb.W, []).append(i)
-
         cpu = torch.device("cpu")
         buckets = []
-        for W, idxs in sorted(groups.items()):
-            for lo in range(0, len(idxs), MAX_BUCKET):
-                chunk = idxs[lo:lo + MAX_BUCKET]
-                Dp = max(wbands[i].n_diagonals for i in chunk)
-                lxp = max(len(jobs[i].target) for i in chunk)
-                lyp = max(len(jobs[i].events) for i in chunk)
-                plan, probs = None, []
-                for i in chunk:
-                    j = jobs[i]
-                    plan, prob = pp.make_sm3_problem(
-                        j.pore, j.target, j.events, wbands[i], device=cpu,
-                        ragged_left=j.ragged_left, ragged_right=j.ragged_right,
-                        pad_lx=lxp, pad_ly=lyp, pad_d=Dp)
-                    probs.append(prob)
-                batch, resident = budget.place(pp.stack_problems(probs))
-                buckets.append(SM3EmBucket(
-                    plan=plan, W=W, batch=batch,
-                    ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
-                    ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
-                    resident=resident, device=device, Dp=Dp,
-                    counts=_bucket_counts(W, [(wbands[i].xmyL, wbands[i].xmyR)
-                                              for i in chunk])))
+        for W, chunk in sorted(pp.launch_groups([wb.W for wb in wbands]),
+                               key=lambda group: group[0]):
+            Dp = max(wbands[i].n_diagonals for i in chunk)
+            lxp = max(len(jobs[i].target) for i in chunk)
+            lyp = max(len(jobs[i].events) for i in chunk)
+            plan, probs = None, []
+            for i in chunk:
+                j = jobs[i]
+                plan, prob = pp.make_sm3_problem(
+                    j.pore, j.target, j.events, wbands[i], device=cpu,
+                    ragged_left=j.ragged_left, ragged_right=j.ragged_right,
+                    pad_lx=lxp, pad_ly=lyp, pad_d=Dp)
+                probs.append(prob)
+            batch, resident = budget.place(pp.stack_problems(probs))
+            buckets.append(SM3EmBucket(
+                plan=plan, W=W, batch=batch,
+                ragged_left=np.array([jobs[i].ragged_left for i in chunk]),
+                ragged_right=np.array([jobs[i].ragged_right for i in chunk]),
+                resident=resident, device=device, Dp=Dp,
+                counts=_bucket_counts(W, [(wbands[i].xmyL, wbands[i].xmyR)
+                                          for i in chunk])))
         return buckets
 
 
@@ -239,8 +234,8 @@ def _sm3_iteration_arrays(transitions: dict | None):
     sm = make_signal_sm3(pore, "ACGTACGTA", np.zeros((2, 3)), t)
     _plan, tp_scalar, cell_sources = _build_plan(sm, "exact")
     assert not cell_sources
-    return (pp._san(tp_scalar), pp._san(sm.start), pp._san(sm.ragged_start),
-            pp._san(sm.end), pp._san(sm.ragged_end))
+    return (pp.finite_f32(tp_scalar), pp.finite_f32(sm.start), pp.finite_f32(sm.ragged_start),
+            pp.finite_f32(sm.end), pp.finite_f32(sm.ragged_end))
 
 
 def bucket_step(bucket: SM3EmBucket, gapx_tab: torch.Tensor, tp_vec: torch.Tensor,

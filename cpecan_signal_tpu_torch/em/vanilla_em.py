@@ -31,14 +31,13 @@ import torch
 from ..constants import N_SKIP_BINS
 from ..core.window import smooth_band
 from ..engine import pipeline as pp
-from ..engine import readpath
 from ..engine.plan import EnginePlan, plan_key_names
 from ..engine.window import window_grids
 from ..models.state_machines import (MATCH, SHORT_GAP_X, make_signal_vanilla,
                                      vanilla_transition_tables)
 from ..ops import fb_kernels as fk
 from .discrete import pairwise_sum
-from .sm3_em import MAX_BUCKET, EmJob, _EmBudget, stream
+from .sm3_em import EmJob, _EmBudget, stream
 
 N_OUT = 2 * N_SKIP_BINS + 1   # per job: beta bins, alpha bins, likelihood
 
@@ -107,36 +106,31 @@ def build_vanilla_em_buckets(jobs: list[EmJob], strand: str, *, device: torch.de
                              width_multiple: int = 128,
                              budget: _EmBudget | None = None) -> list[VanillaEmBucket]:
     """Pack jobs into width-bucketed vanilla problems (once, before the EM
-    loop): one bucket per window width and MAX_BUCKET jobs, padded to the
-    chunk's longest job.  ``strand`` is 't' or 'c' (the vanilla strand
-    defaults); ``budget`` (shared across strands by the caller) decides
-    which buckets stay on the device."""
+    loop): buckets of one window width (pipeline.launch_groups), in
+    increasing width, each padded to its longest job.  ``strand`` is 't' or
+    'c' (the vanilla strand defaults); ``budget`` (shared across strands by
+    the caller) decides which buckets stay on the device."""
     if budget is None:
         budget = _EmBudget(device)
     strand_name = "template" if strand == "t" else "complement"
     wbands = [smooth_band(j.band, width_multiple=width_multiple) for j in jobs]
-    groups: dict[int, list[int]] = {}
-    for i, wb in enumerate(wbands):
-        groups.setdefault(wb.W, []).append(i)
-
     cpu = torch.device("cpu")
     buckets = []
-    for W, idxs in sorted(groups.items()):
-        for lo in range(0, len(idxs), MAX_BUCKET):
-            chunk = idxs[lo:lo + MAX_BUCKET]
-            sms = [make_signal_vanilla(jobs[i].pore, jobs[i].target, jobs[i].events,
-                                       strand_name) for i in chunk]
-            plan, prob = pp.pack_window_bucket(
-                [(sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                 for sm, i in zip(sms, chunk)], cpu)
-            Dp = prob.diag_scalars.shape[1] - 1
-            keys = [_bin_keys(sm, wbands[i], prob.x0[bi].numpy(), Dp)
-                    for bi, (sm, i) in enumerate(zip(sms, chunk))]
-            batch, resident = budget.place(VanillaBatch(
-                *prob, *(torch.from_numpy(np.stack(col)) for col in zip(*keys))))
-            buckets.append(VanillaEmBucket(
-                plan=plan, W=W, batch=batch, cell_keys=plan_key_names(sms[0])[1],
-                strand_name=strand_name, jobs=chunk, resident=resident, device=device))
+    for W, chunk in sorted(pp.launch_groups([wb.W for wb in wbands]),
+                           key=lambda group: group[0]):
+        sms = [make_signal_vanilla(jobs[i].pore, jobs[i].target, jobs[i].events,
+                                   strand_name) for i in chunk]
+        plan, prob = pp.pack_window_bucket(
+            [(sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+             for sm, i in zip(sms, chunk)], cpu)
+        Dp = prob.diag_scalars.shape[1] - 1
+        keys = [_bin_keys(sm, wbands[i], prob.x0[bi].numpy(), Dp)
+                for bi, (sm, i) in enumerate(zip(sms, chunk))]
+        batch, resident = budget.place(VanillaBatch(
+            *prob, *(torch.from_numpy(np.stack(col)) for col in zip(*keys))))
+        buckets.append(VanillaEmBucket(
+            plan=plan, W=W, batch=batch, cell_keys=plan_key_names(sms[0])[1],
+            strand_name=strand_name, jobs=chunk, resident=resident, device=device))
     return buckets
 
 
@@ -190,6 +184,6 @@ def vanilla_em_step(buckets: list[VanillaEmBucket], bins: np.ndarray):
         T = np.stack([np.maximum(tabs[k], pp.NEG_INF) for k in b.cell_keys])
         rows.append(bucket_step(b, pp.to_device(T.astype(np.float32), b.device)))
     per_job = np.zeros((sum(len(b.jobs) for b in buckets), N_OUT))
-    for b, packed in zip(buckets, readpath._collect_packed(rows)):
+    for b, packed in zip(buckets, pp.to_host(rows)):
         per_job[b.jobs] = packed
     return per_job[:, :-1].sum(0), float(per_job[:, -1].sum())

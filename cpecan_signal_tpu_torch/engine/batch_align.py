@@ -36,7 +36,6 @@ from . import readpath
 from .align import AlignedPairs, SplitJob, _extract_pairs
 from .window import window_grids
 
-MAX_BUCKET = 64      # full-grid problems per device batch (bounds host packing)
 BUCKET_E_BYTES = 4 << 30   # host-built E per generic bucket (pinned, uploaded)
 WAVE_EVENTS = 8000   # events staged per dispatched wave
 
@@ -46,12 +45,8 @@ def _run_full_grid(jobs, wbands, idxs, threshold, device, out):
     overflowed: host-packed problems batched per window width, the same
     kernels, the whole (Dp, W) posterior grid copied back and thresholded on
     the host."""
-    by_width: dict[int, list[int]] = {}
-    for i in idxs:
-        by_width.setdefault(wbands[i].W, []).append(i)
-    chunks = [w_idxs[lo:lo + MAX_BUCKET] for w_idxs in by_width.values()
-              for lo in range(0, len(w_idxs), MAX_BUCKET)]
-    for chunk in chunks:
+    for _W, pos in pp.launch_groups([wbands[i].W for i in idxs]):
+        chunk = [idxs[k] for k in pos]
         Dmax = max(wbands[i].n_diagonals for i in chunk)
         lxp = max(len(jobs[i].sm.sm3_pack[1]) for i in chunk)
         lyp = max(len(jobs[i].sm.sm3_pack[2]) for i in chunk)
@@ -103,43 +98,40 @@ def _extract_multi_window(p_states, wb, threshold, off_x, off_y):
     return np.concatenate(probs), np.concatenate(xs), np.concatenate(ys)
 
 
-def _generic_chunks(wbands, idxs, plan_channels):
-    """Split one (machine, width) group, in job order, into buckets of at
-    most MAX_BUCKET problems whose E (padded to the bucket's longest job)
-    stays within BUCKET_E_BYTES; a job larger than that alone gets a bucket
-    of its own."""
-    chunks, cur, dmax = [], [], 0
+def _e_bytes(jobs, wbands, idxs) -> list[int]:
+    """Each job's host-built E in bytes, (D + 2) x (C + T) x W f32: the size
+    that BUCKET_E_BYTES caps in a bucket padded to its longest job."""
+    channels: dict[str, int] = {}
+    out = []
     for i in idxs:
-        wb = wbands[i]
-        d = max(dmax, wb.n_diagonals)
-        e_bytes = (len(cur) + 1) * (d + 2) * plan_channels * wb.W * 4
-        if cur and (len(cur) >= MAX_BUCKET or e_bytes > BUCKET_E_BYTES):
-            chunks.append(cur)
-            cur, d = [], wb.n_diagonals
-        cur.append(i)
-        dmax = d
-    return chunks + [cur] if cur else chunks
+        sm, wb = jobs[i].sm, wbands[i]
+        if sm.spec.name not in channels:
+            channels[sm.spec.name] = pp._plan_channels(sm)[1]
+        out.append((wb.n_diagonals + 2) * channels[sm.spec.name] * wb.W * 4)
+    return out
 
 
-def _run_generic_buckets(jobs, wbands, groups, threshold, device, out, timing=None):
-    """Generic window machines (vanilla, fourState, echelon): pack and
-    dispatch every bucket first, then collect every posterior grid with one
-    copy and extract the pairs on the host.  Echelon buckets run the
-    backward kernel's per-state posteriors (pstates = its matchN states)."""
+def _run_generic_buckets(jobs, wbands, idxs, threshold, device, out, timing=None):
+    """Generic window machines (vanilla, fourState, echelon): buckets per
+    (machine, window width) within BUCKET_E_BYTES; pack and dispatch every
+    bucket first, then collect every posterior grid with one copy and
+    extract the pairs on the host.  Echelon buckets run the backward
+    kernel's per-state posteriors (pstates = its matchN states)."""
     pending = []
     with timed("host_pack", timing):
-        for (name, _W), idxs in groups.items():
-            CT = pp._plan_channels(jobs[idxs[0]].sm)[1]
-            for chunk in _generic_chunks(wbands, idxs, CT):
-                plan, batch = pp.pack_window_bucket(
-                    [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                     for i in chunk], device)
-                pstates = (tuple(range(plan.match_state, ECH_GAPX))   # match1..match5
-                           if name == "echelon" else None)
-                p, _totals = pp.run_window(plan, wbands[chunk[0]].W, batch, pstates=pstates)
-                pending.append((chunk, p, pstates))
+        keys = [(jobs[i].sm.spec.name, wbands[i].W) for i in idxs]
+        for (name, W), pos in pp.launch_groups(keys, _e_bytes(jobs, wbands, idxs),
+                                               BUCKET_E_BYTES):
+            chunk = [idxs[k] for k in pos]
+            plan, batch = pp.pack_window_bucket(
+                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                 for i in chunk], device)
+            pstates = (tuple(range(plan.match_state, ECH_GAPX))   # match1..match5
+                       if name == "echelon" else None)
+            p, _totals = pp.run_window(plan, W, batch, pstates=pstates)
+            pending.append((chunk, p, pstates))
     with timed("device_wait", timing):
-        grids = readpath._collect_packed([p for _c, p, _s in pending])
+        grids = pp.to_host([p for _c, p, _s in pending])
     with timed("host_extract", timing):
         for (chunk, _p, pstates), p in zip(pending, grids):
             for bi, i in enumerate(chunk):
@@ -182,36 +174,36 @@ def _run_hdp_buckets(jobs, wbands, idxs, threshold, device, out, timing=None) ->
     buckets.  The raw densities spread a read's posterior over many cells
     (tens of pairs an event), so the pairs are compacted with a slot for
     every passing cell: the count is read back (one wait a bucket), then
-    ``readpath._extract_global`` keeps every lane of a diagonal; all buckets
+    ``readpath.extract_global`` keeps every lane of a diagonal; all buckets
     are collected with one copy."""
     with timed("host_pack", timing):
-        groups: dict[tuple, list[int]] = {}
-        for i in idxs:
-            groups.setdefault((id(jobs[i].sm.hdp_pack[0]), wbands[i].W), []).append(i)
+        keys = [(id(jobs[i].sm.hdp_pack[0]), wbands[i].W) for i in idxs]
+        sizes = [(wbands[i].n_diagonals + 2) * 3 * wbands[i].W * 4 for i in idxs]
+        tables: dict[int, torch.Tensor] = {}
         pending = []
-        for (_tid, W), g_idxs in groups.items():
-            tab0, g0, dg = jobs[g_idxs[0]].sm.hdp_pack[:3]
-            tab = pp.to_device(np.maximum(tab0, 0.0).astype(np.float32), device)
-            for chunk in _generic_chunks(wbands, g_idxs, 3):
-                Dp = max(wbands[i].n_diagonals for i in chunk)
-                plan, (ds, d_last, start, end, tp, x0) = pp.stack_window_scalars(
-                    [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
-                     for i in chunk], Dp, device)
-                rank, mean = (np.stack(a) for a in zip(*(pp.hdp_inputs(jobs[i].sm, Dp + 2)
-                                                         for i in chunk)))
-                E = readpath.hdp_emissions(tab, g0, dg or 1.0, pp.to_device(rank, device),
-                                           pp.to_device(mean, device),
-                                           ds[:, :Dp, 0, fk.DS_W0], d_last, W)
-                p, _totals = pp.run_window(plan, W, pp.WindowProblem(E, ds, d_last, start,
-                                                                     end, tp, x0))
-                del E
-                Kg = readpath._round_up(int((p >= np.float32(threshold)).sum()) + 1, 2048)
-                real = torch.ones(len(chunk), dtype=torch.bool, device=device)
-                cnt, over, outq, outi = readpath._extract_global(p, threshold, Kg, real, L=W)
-                staged = [(i, _Placed(wbands[i], jobs[i].off_x, jobs[i].off_y), plan)
-                          for i in chunk]
-                pending.append((staged, list(range(len(chunk))),
-                                torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
+        for (tid, W), pos in pp.launch_groups(keys, sizes, BUCKET_E_BYTES):
+            chunk = [idxs[k] for k in pos]
+            tab0, g0, dg = jobs[chunk[0]].sm.hdp_pack[:3]
+            if tid not in tables:
+                tables[tid] = pp.to_device(np.maximum(tab0, 0.0).astype(np.float32), device)
+            Dp = max(wbands[i].n_diagonals for i in chunk)
+            plan, (ds, d_last, start, end, tp, x0) = pp.stack_window_scalars(
+                [(jobs[i].sm, wbands[i], jobs[i].ragged_left, jobs[i].ragged_right)
+                 for i in chunk], Dp, device)
+            rank, mean = (np.stack(a) for a in zip(*(pp.hdp_inputs(jobs[i].sm, Dp + 2)
+                                                     for i in chunk)))
+            E = readpath.hdp_emissions(tables[tid], g0, dg or 1.0, pp.to_device(rank, device),
+                                       pp.to_device(mean, device),
+                                       ds[:, :Dp, 0, fk.DS_W0], d_last, W)
+            p, _totals = pp.run_window(plan, W, pp.WindowProblem(E, ds, d_last, start,
+                                                                 end, tp, x0))
+            del E
+            Kg = readpath.round_up(int((p >= np.float32(threshold)).sum()) + 1, 2048)
+            cnt, over, outq, outi = readpath.extract_global(p, threshold, Kg, L=W)
+            staged = [(i, _Placed(wbands[i], jobs[i].off_x, jobs[i].off_y), plan)
+                      for i in chunk]
+            pending.append((staged, list(range(len(chunk))),
+                            torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
     for ji, pairs in readpath.collect_fast_jobs(pending, timing=timing).items():
         assert pairs is not None, ji   # a slot for every passing cell
         out[ji] = pairs
@@ -236,7 +228,7 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
     staged_sym: list = []
     hdp_idxs: list[int] = []
     pending: list = []
-    generic: dict[tuple, list[int]] = {}
+    generic: list[int] = []
     ev_acc = 0
 
     def flush():
@@ -262,7 +254,7 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
                     if sym is not None:
                         staged_sym.append((i, *sym))
                     else:
-                        generic.setdefault((j.sm.spec.name, wb.W), []).append(i)
+                        generic.append(i)
                     continue
                 fj, plan = readpath.stage_fast_job(j, wb)
                 staged_wave.append((i, fj, plan))
@@ -284,7 +276,7 @@ def batch_align_stream(per_read_jobs, threshold: float, *, device: torch.device,
         for ji, pairs in readpath.run_symbol_jobs(staged_sym, threshold, device=device,
                                                   timing=timing).items():
             if pairs is None:   # overflow: the full-grid generic buckets
-                generic.setdefault((jobs[ji].sm.spec.name, wbands[ji].W), []).append(ji)
+                generic.append(ji)
             else:
                 out[ji] = pairs
     if hdp_idxs:

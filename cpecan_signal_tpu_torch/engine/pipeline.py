@@ -5,6 +5,12 @@ generic window problems of any machine, whose emission and per-cell
 transition grids are built on the host (forward -> backward, at stage 3 or
 with the EM tallies of stage 4).
 
+The staging every lane shares: which jobs share a launch
+(``launch_groups``), a job's window rows padded to its launch's diagonals
+(``pad_window``), the kernels' per-diagonal rows built from them on the
+host or on the card (``band_scalars``), and the upload and the one
+download (``to_device``, ``to_host``).
+
 Index conventions: per-x arrays are indexed by x (= x_idx + 1, so slot 0 is
 the x = -1 sentinel) shifted by +PADX so window cells left of the matrix stay
 in bounds; reversed event arrays are indexed by ri = lY - y (increasing along
@@ -13,6 +19,7 @@ a diagonal).
 
 from __future__ import annotations
 
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -64,38 +71,105 @@ def _gauss_pack(table: np.ndarray, ranks: np.ndarray):
     return pack(mu_l, sd_l) + pack(mu_n, sd_n)
 
 
-def _san(v):
+def finite_f32(v):
     """Finite f32: saturate -inf transition/boundary values to NEG_INF so
     in-kernel f32 arithmetic stays NaN-free."""
     return np.maximum(np.asarray(v, dtype=np.float64), NEG_INF).astype(np.float32)
 
 
-def _window_diag_scalars(wband: WindowBand, Dp: int):
-    """(Dp+1, 1, 8) int32 DS_* rows for a window band padded to Dp diagonals;
-    padded rows keep stepping the window with empty xmy ranges so they stay
-    invalid.  DS_XS and the row-Dp copy are left to the caller.  Returns
-    (ds, padded w0)."""
-    D, W = wband.n_diagonals, wband.W
-    w0 = np.empty(Dp, dtype=np.int64)
-    w0[:D] = wband.w0
-    for d in range(D, Dp):
-        w0[d] = w0[d - 1] + (1 if (d - D) % 2 == 0 else -1)
-    xmyL = np.empty(Dp, dtype=np.int64)
-    xmyR = np.empty(Dp, dtype=np.int64)
-    xmyL[:D] = wband.xmyL
-    xmyR[:D] = wband.xmyR
-    xmyL[D:] = w0[D:] + 2 * W + 2
-    xmyR[D:] = w0[D:]
+# ---------------------------------------------------------------------------
+# Window rows and launches: the staging every lane shares
+# ---------------------------------------------------------------------------
 
-    ds = np.zeros((Dp + 1, 1, 8), dtype=np.int32)
-    ds[2:Dp, 0, fk.DS_FM] = (w0[2:] - w0[:-2]) // 2
-    ds[1:Dp, 0, fk.DS_FL] = (w0[1:] - 1 - w0[:-1]) // 2
-    ds[:Dp - 1, 0, fk.DS_BL] = (w0[:-1] + 1 - w0[1:]) // 2
-    ds[:Dp - 2, 0, fk.DS_BM] = (w0[:-2] - w0[2:]) // 2
-    ds[:Dp, 0, fk.DS_W0] = w0
-    ds[:Dp, 0, fk.DS_XMYL] = xmyL
-    ds[:Dp, 0, fk.DS_XMYR] = xmyR
-    return ds, w0
+MAX_BUCKET = 64    # problems a launch
+
+
+def launch_groups(keys, sizes=None, size_cap=math.inf) -> list[tuple[object, list[int]]]:
+    """Which jobs share a launch.  Job i joins the group of ``keys[i]``
+    (groups in the order of their first job, jobs in job order); each group
+    is cut, in order, into chunks of at most MAX_BUCKET jobs whose padded
+    size, their count times the largest of their ``sizes``, stays within
+    ``size_cap``.  A job over the cap alone gets a chunk of its own.
+    Returns [(key, job indices)]."""
+    sizes = [0] * len(keys) if sizes is None else sizes
+    groups: dict[object, list[int]] = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
+    out = []
+    for key, idxs in groups.items():
+        chunk, top = [], 0
+        for i in idxs:
+            size = max(top, sizes[i])
+            if chunk and (len(chunk) >= MAX_BUCKET or (len(chunk) + 1) * size > size_cap):
+                out.append((key, chunk))
+                chunk, size = [], sizes[i]
+            chunk.append(i)
+            top = size
+        out.append((key, chunk))
+    return out
+
+
+def pad_window(wb: WindowBand, Dp: int) -> np.ndarray:
+    """(3, Dp) int32 window rows (w0, xmyL, xmyR) of a band padded to Dp
+    diagonals: past the last one, w0 steps +1 and -1 in turn and the xmy
+    range is empty (xmyL = w0 + 2W + 2 > xmyR = w0), so padded rows stay
+    invalid."""
+    D = wb.n_diagonals
+    out = np.empty((3, Dp), dtype=np.int32)
+    out[0, :D] = wb.w0
+    out[1, :D] = wb.xmyL
+    out[2, :D] = wb.xmyR
+    w0p = wb.w0[D - 1] + (np.arange(Dp - D) % 2 == 0)
+    out[0, D:] = w0p
+    out[1, D:] = w0p + 2 * wb.W + 2
+    out[2, D:] = w0p
+    return out
+
+
+def band_scalars(win: torch.Tensor, lY: torch.Tensor, W: int, lXp: int, lYp: int):
+    """The kernels' per-diagonal rows of a batch, on the device of ``win``:
+    from the padded window rows ``win`` (B, 3, Dp) int32 and the event
+    counts ``lY`` (B,), the DS_* rows (B, Dp+1, 1, 8) and the emission
+    offsets x0, yr0 (B, Dp+1) int32 into per-x and reversed-event rows
+    padded by W on the left (x0 = (d + w0) / 2 + W clamped to [0, lXp - W],
+    yr0 = lY - (d - w0) / 2 + W clamped to [0, lYp - W]).  DS_XS is the
+    step of x0; row Dp of the DS_* rows repeats row Dp - 1 (the kernels peek
+    at d + 1), x0 and yr0 are 0 there.  All divisions are exact ((d +- w0)
+    is even)."""
+    w0 = win[:, 0]
+    B, Dp = w0.shape
+    dev = win.device
+    d = torch.arange(Dp, dtype=torch.int32, device=dev)
+    x0 = torch.zeros((B, Dp + 1), dtype=torch.int32, device=dev)
+    yr0 = torch.zeros((B, Dp + 1), dtype=torch.int32, device=dev)
+    x0[:, :Dp] = torch.clamp((d + w0) // 2 + W, 0, lXp - W)
+    yr0[:, :Dp] = torch.clamp(lY[:, None] - (d - w0) // 2 + W, 0, lYp - W)
+    ds = torch.zeros((B, Dp + 1, 8), dtype=torch.int32, device=dev)
+    ds[:, 2:Dp, fk.DS_FM] = (w0[:, 2:] - w0[:, :-2]) // 2
+    ds[:, 1:Dp, fk.DS_FL] = (w0[:, 1:] - 1 - w0[:, :-1]) // 2
+    ds[:, :Dp - 1, fk.DS_BL] = (w0[:, :-1] + 1 - w0[:, 1:]) // 2
+    ds[:, :Dp - 2, fk.DS_BM] = (w0[:, :-2] - w0[:, 2:]) // 2
+    ds[:, :Dp, fk.DS_W0] = w0
+    ds[:, :Dp, fk.DS_XMYL] = win[:, 1]
+    ds[:, :Dp, fk.DS_XMYR] = win[:, 2]
+    ds[:, 1:Dp, fk.DS_XS] = x0[:, 1:Dp] - x0[:, :Dp - 1]
+    ds[:, Dp] = ds[:, Dp - 1]
+    return ds[:, :, None, :], x0, yr0
+
+
+def window_band_scalars(win: torch.Tensor, W: int):
+    """(DS_* rows, x0) of WindowProblems from their window rows: the rows of
+    ``band_scalars`` and x0 the grid x of window lane 0, row Dp repeating
+    row Dp - 1.  Lane 0 lies at most W - 1 lanes left of the band and x
+    grows by at most one a diagonal, so bounds of Dp + 2W + 128 never
+    clamp."""
+    B, _three, Dp = win.shape
+    bound = Dp + 2 * W + 128
+    ds, x0, _yr0 = band_scalars(win, torch.zeros(B, dtype=torch.int32, device=win.device),
+                                W, bound, bound)
+    x0 = x0 - W
+    x0[:, Dp] = x0[:, Dp - 1]
+    return ds, x0
 
 
 def make_sm3_problem(pore: PoreModel, target_seq: str, events: np.ndarray,
@@ -144,26 +218,20 @@ def make_sm3_problem(pore: PoreModel, target_seq: str, events: np.ndarray,
     evr[0, PADY:PADY + lY] = events[::-1, 0]
     evr[1, PADY:PADY + lY] = events[::-1, 1]
 
-    ds, w0 = _window_diag_scalars(wband, Dp)
-    d_arange = np.arange(Dp)
-    x0 = np.zeros(Dp + 1, dtype=np.int32)
-    yr0 = np.zeros(Dp + 1, dtype=np.int32)
-    x0[:Dp] = np.clip((d_arange + w0) // 2 + PADX, 0, lXp - W)
-    yr0[:Dp] = np.clip(lY - (d_arange - w0) // 2 + PADY, 0, lYp - W)
-    ds[1:Dp, 0, fk.DS_XS] = x0[1:Dp] - x0[:Dp - 1]  # x-window step, in {0,1}
-    ds[Dp] = ds[Dp - 1]  # row Dp: read when the kernels peek at d+1
+    ds, x0, yr0 = band_scalars(torch.from_numpy(pad_window(wband, Dp)[None]),
+                               torch.tensor([lY], dtype=torch.int32), W, lXp, lYp)
 
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     prob = SM3Problem(
         xarr=t(xarr, torch.float32), evr=t(evr, torch.float32),
-        x0=t(x0, torch.int32), yr0=t(yr0, torch.int32),
-        diag_scalars=t(ds, torch.int32),
+        x0=t(x0[0], torch.int32), yr0=t(yr0[0], torch.int32),
+        diag_scalars=t(ds[0], torch.int32),
         d_last=t(D - 1, torch.int32),
-        start=t(_san(sm.ragged_start if ragged_left else sm.start), torch.float32),
-        end=t(_san(sm.ragged_end if ragged_right else sm.end), torch.float32),
-        tp_scalar=t(_san(tp_scalar), torch.float32),
+        start=t(finite_f32(sm.ragged_start if ragged_left else sm.start), torch.float32),
+        end=t(finite_f32(sm.ragged_end if ragged_right else sm.end), torch.float32),
+        tp_scalar=t(finite_f32(tp_scalar), torch.float32),
         xrank=t(xrank, torch.int32))
     return plan, prob
 
@@ -205,6 +273,20 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def to_host(handles: list[torch.Tensor]) -> list[np.ndarray]:
+    """ONE device-to-host copy for all pending buckets: the packed outputs
+    are concatenated on the device and split on the host."""
+    if not handles:
+        return []
+    combined = torch.cat([h.reshape(-1) for h in handles]).cpu().numpy()
+    out = []
+    off = 0
+    for h in handles:
+        out.append(combined[off:off + h.numel()].reshape(h.shape))
+        off += h.numel()
+    return out
 
 
 def run_sm3(plan: EnginePlan, W: int, batch: SM3Problem, stages: int = 3):
@@ -305,29 +387,6 @@ def _plan_channels(sm) -> tuple[EnginePlan, int]:
     return plan, plan.n_eclasses + len(cells)
 
 
-def window_scalars(sm, wband: WindowBand, Dp: int, *, ragged_left: bool,
-                   ragged_right: bool):
-    """The machine's plan and every WindowProblem field of one problem but E,
-    as numpy: (diag scalars (Dp+1, 1, 8), d_last, start, end, tp_scalar,
-    x0), padded to Dp diagonals (make_window_pallas_problem,
-    engine/pallas_pipeline.py:314-360).  Lanes whose E the device builds
-    (the threeStateHdp buckets) need nothing more from the host."""
-    plan, tp_scalar, _cells = _build_plan(sm, "exact")
-    ds, w0 = _window_diag_scalars(wband, Dp)
-    # DS_XS (the x-window step) for the stage-4 window tallies
-    x_of_j0 = (np.arange(Dp) + w0) // 2
-    ds[1:Dp, 0, fk.DS_XS] = np.clip(x_of_j0[1:] - x_of_j0[:-1], 0, 1)
-    ds[Dp] = ds[Dp - 1]
-    x0 = np.empty(Dp + 1, dtype=np.int32)
-    x0[:Dp] = x_of_j0
-    x0[Dp] = x_of_j0[Dp - 1]
-    start = sm.ragged_start if ragged_left else sm.start
-    end = sm.ragged_end if ragged_right else sm.end
-    tp_scalar = tp_scalar if tp_scalar.size else np.zeros(1)
-    return plan, (ds, np.int32(wband.n_diagonals - 1), _san(start), _san(end),
-                  _san(tp_scalar), x0)
-
-
 def hdp_inputs(sm, Lc: int) -> tuple[np.ndarray, np.ndarray]:
     """(k-mer ranks by grid x, event means by grid y) of a threeStateHdp
     machine, padded to Lc with their last values (slot 0 of the means is
@@ -345,25 +404,37 @@ def hdp_inputs(sm, Lc: int) -> tuple[np.ndarray, np.ndarray]:
 
 def stack_window_scalars(items, Dp: int, device: torch.device):
     """(plan, [diag scalars, d_last, start, end, tp_scalar, x0] stacked on
-    ``device``) of [(sm, wband, ragged_left, ragged_right)], one machine,
-    padded to Dp diagonals: every WindowProblem field but E."""
+    ``device``) of [(sm, wband, ragged_left, ragged_right)], one machine and
+    one window width, padded to Dp diagonals: every WindowProblem field but
+    E (make_window_pallas_problem, engine/pallas_pipeline.py:314-360).
+    Lanes whose E the device builds (the threeStateHdp buckets) need nothing
+    more from the host."""
     plan, rows = None, []
     for sm, wb, rl, rr in items:
-        iplan, rest = window_scalars(sm, wb, Dp, ragged_left=rl, ragged_right=rr)
+        iplan, tp_scalar, _cells = _build_plan(sm, "exact")
+        # buckets key on the machine's name; a plan that varied under one
+        # name would run with the wrong edge table
         assert plan is None or iplan == plan, sm.spec.name
         plan = iplan
-        rows.append(rest)
-    return plan, [to_device(np.stack(col), device) for col in zip(*rows)]
+        rows.append((np.int32(wb.n_diagonals - 1),
+                     finite_f32(sm.ragged_start if rl else sm.start),
+                     finite_f32(sm.ragged_end if rr else sm.end),
+                     finite_f32(tp_scalar if tp_scalar.size else np.zeros(1))))
+    win = np.stack([pad_window(wb, Dp) for _sm, wb, *_r in items])
+    ds, x0 = window_band_scalars(torch.from_numpy(win), items[0][1].W)
+    d_last, start, end, tp_scalar = (np.stack(col) for col in zip(*rows))
+    return plan, [to_device(a, device)
+                  for a in (ds.numpy(), d_last, start, end, tp_scalar, x0.numpy())]
 
 
-def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
-                         ragged_left: bool, ragged_right: bool):
-    """Pack one problem for the generic kernels (make_window_pallas_problem,
-    engine/pallas_pipeline.py:314-360) into ``E_out``, a zeroed (Dp+2, C+T,
-    W) f32 array, and return (plan, the other WindowProblem fields as numpy,
-    ``window_scalars``).  Emissions and transition rows saturate at NEG_INF,
-    so the f32 kernels stay NaN-free (vanilla's all-zero emission class
-    comes with log(0) transition rows)."""
+def _fill_window_grids(sm, wband: WindowBand, E_out: np.ndarray, *,
+                       ragged_left: bool, ragged_right: bool) -> None:
+    """Pack one problem's emission and transition grids for the generic
+    kernels (make_window_pallas_problem, engine/pallas_pipeline.py:314-360)
+    into ``E_out``, a zeroed (Dp+2, C+T, W) f32 array.  Emissions and
+    transition rows saturate at NEG_INF, so the f32 kernels stay NaN-free
+    (vanilla's all-zero emission class comes with log(0) transition
+    rows)."""
     plan, winp = prepare_window_inputs(sm, wband, ragged_left=ragged_left,
                                        ragged_right=ragged_right)
     D = wband.n_diagonals
@@ -371,8 +442,6 @@ def _fill_window_problem(sm, wband: WindowBand, Dp: int, E_out: np.ndarray, *,
     assert C == plan.n_eclasses and E_out.shape[1] == C + winp.TP.shape[1]
     np.maximum(winp.E[:D], NEG_INF, out=E_out[:D, :C], casting="unsafe")
     np.maximum(winp.TP[:D], NEG_INF, out=E_out[:D, C:], casting="unsafe")
-    return window_scalars(sm, wband, Dp, ragged_left=ragged_left,
-                          ragged_right=ragged_right)
 
 
 def make_window_problem(sm, wband: WindowBand, *, device: torch.device,
@@ -384,42 +453,33 @@ def make_window_problem(sm, wband: WindowBand, *, device: torch.device,
     _plan, CT = _plan_channels(sm)
     Dp = max(wband.n_diagonals, pad_d or wband.n_diagonals)
     E = np.zeros((Dp + 2, CT, wband.W), dtype=np.float32)
-    plan, rest = _fill_window_problem(sm, wband, Dp, E, ragged_left=ragged_left,
-                                      ragged_right=ragged_right)
-    return plan, WindowProblem(*(torch.as_tensor(a, device=device) for a in (E, *rest)))
+    _fill_window_grids(sm, wband, E, ragged_left=ragged_left, ragged_right=ragged_right)
+    plan, rest = stack_window_scalars([(sm, wband, ragged_left, ragged_right)], Dp, device)
+    return plan, WindowProblem(torch.as_tensor(E, device=device), *(t[0] for t in rest))
 
 
 def pack_window_bucket(items, device: torch.device) -> tuple[EnginePlan, WindowProblem]:
     """Stack the problems of ``items`` [(sm, wband, ragged_left,
     ragged_right)], one machine and one window width, padded to the longest,
-    into one batch on ``device``.  On a card the batch is packed straight
-    into pinned host memory and uploaded without blocking, so the card works
-    on earlier buckets meanwhile.  The problems fill in parallel threads:
-    numpy releases the GIL in the grids' array arithmetic, which is most of
-    the packing time."""
-    sm0, wb0 = items[0][:2]
-    plan, CT = _plan_channels(sm0)
+    into one batch on ``device``.  On a card E is packed straight into
+    pinned host memory and uploaded without blocking, so the card works on
+    earlier buckets meanwhile.  The grids fill in parallel threads: numpy
+    releases the GIL in their array arithmetic, which is most of the packing
+    time."""
+    _plan, CT = _plan_channels(items[0][0])
     Dp = max(wb.n_diagonals for _sm, wb, *_r in items)
-    pinned = device.type == "cuda"
-    E = torch.zeros((len(items), Dp + 2, CT, wb0.W), dtype=torch.float32,
-                    pin_memory=pinned)
+    E = torch.zeros((len(items), Dp + 2, CT, items[0][1].W), dtype=torch.float32,
+                    pin_memory=device.type == "cuda")
     E_np = E.numpy()
 
     def fill(b):
         sm, wb, rl, rr = items[b]
-        return _fill_window_problem(sm, wb, Dp, E_np[b], ragged_left=rl, ragged_right=rr)
+        _fill_window_grids(sm, wb, E_np[b], ragged_left=rl, ragged_right=rr)
 
-    rows = []
     with ThreadPoolExecutor(max_workers=min(len(items), os.cpu_count() or 1)) as pool:
-        for (sm, *_r), (iplan, rest) in zip(items, pool.map(fill, range(len(items)))):
-            # buckets key on the machine's name; a plan that varied under one
-            # name would run with the wrong edge table
-            assert iplan == plan, sm.spec.name
-            rows.append(rest)
-    fields = [E] + [torch.from_numpy(np.stack(col)) for col in zip(*rows)]
-    if pinned:
-        fields = [t if t.is_pinned() else t.pin_memory() for t in fields]
-    return plan, WindowProblem(*(t.to(device, non_blocking=True) for t in fields))
+        list(pool.map(fill, range(len(items))))
+    plan, rest = stack_window_scalars(items, Dp, device)
+    return plan, WindowProblem(E.to(device, non_blocking=True), *rest)
 
 
 def stack_window_problems(probs: list[WindowProblem]) -> WindowProblem:

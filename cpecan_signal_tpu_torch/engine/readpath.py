@@ -1,28 +1,28 @@
 """Device-packed threeState alignment lane: the CLIs' fast route (port of
-engine/readpath.py:58-899, threeState lane).
+engine/readpath.py:58-899, threeState lane), and the symbol lane beside it.
 
 Per problem the host ships only the irreducible inputs and reads back only
 the threshold-passing pairs:
 
-  up:   per bucket, flat variable-length buffers: int16 rank codes, an int16
-        window stream of one word per diagonal, f32 reversed event rows and
-        small per-problem meta blocks;
+  up:   per bucket, padded arrays: k-mer ranks (or symbol codes), reversed
+        event rows, the window rows of pipeline.pad_window and the
+        per-problem scale, transition, start and end rows;
   down: one globally-compacted (quantized prob, flat cell index) buffer per
         bucket, all buckets concatenated on the device and fetched with one
-        device-to-host copy per collection.
+        device-to-host copy per collection (pipeline.to_host).
 
 On the device (plain torch ops around the three kernels of ops/fb_kernels):
-the flat-transport unpack, the per-read model scaling and Gauss pack
-(``_pack_xarr``, kept in f32 so the emissions round like the JAX fast
-lane's), the per-diagonal DS_* scalars (``_pack_ds``) and the pair
-extraction (``_extract_global``).  Torch queues CUDA work asynchronously, so
-every bucket is dispatched before the one synchronising copy in
-``collect_fast_jobs``.
+the per-read model scaling and Gauss pack (``_pack_xarr``, kept in f32 so
+the emissions round like the JAX fast lane's), the per-diagonal rows
+(pipeline.band_scalars) and the pair extraction (``extract_global``).
+Torch queues CUDA work asynchronously, so every bucket is dispatched before
+the one synchronising copy in ``collect_fast_jobs``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,17 +39,16 @@ from .align import AlignedPairs
 from .plan import _build_plan
 
 NEG_INF = fk.NEG_INF
-_ALLOWED_B = (1, 2, 4, 8, 16, 32, 64, 128)
 _DQ = 256        # Dp quantization ladder step (bounds the number of buckets)
 _NBASE = 4       # base-model slots per bucket (stacked table upload)
 _EXTRACT_L = 16  # per-diagonal slot cap of the two-stage compaction
-MAX_BUCKET = 64            # symbol-lane problems per bucket
+FAST_DIAGONALS = 512 * 1024   # fast-lane padded diagonals per bucket
 BUCKET_CELLS = 3 << 27     # symbol-lane window cells per bucket (the E-step's
                            # E 4.8 GB, F and P 8.1 GB each, the backward's
                            # workspace 9.8 GB: b and the window-group sums)
 
 
-def _round_up(x: int, m: int) -> int:
+def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
@@ -57,13 +56,13 @@ def _dp_ladder(d: int) -> int:
     """Quantized Dp: 256-multiples up to 1024, powers of two to 16384, then
     8192-multiples; coarse rungs merge jobs into few buckets."""
     if d <= 1024:
-        return _round_up(max(d, _DQ), _DQ)
+        return round_up(max(d, _DQ), _DQ)
     if d <= 16384:
         p = 2048
         while p < d:
             p *= 2
         return p
-    return _round_up(d, 8192)
+    return round_up(d, 8192)
 
 
 # ---------------------------------------------------------------------------
@@ -132,132 +131,7 @@ def _pack_xarr(mt, yt, gapx, bidx, xrank, scale8):
     return torch.stack(list(rows) + [gx], dim=1)
 
 
-def _pack_ds(win, lY, W: int, lXp: int, lYp: int):
-    """Per-diagonal DS_* scalars (B, Dp+1, 1, 8) and emission offsets x0/yr0
-    (B, Dp+1) from the (B, 3, Dp) window rows (w0, xmyL, xmyR).  All
-    divisions are exact ((d +- w0) is even)."""
-    w0, xl, xr = win[:, 0], win[:, 1], win[:, 2]
-    B, Dp = w0.shape
-    z = torch.zeros((B, 1), dtype=torch.int32, device=w0.device)
-    fL = torch.cat([z, (w0[:, 1:] - 1 - w0[:, :-1]) // 2], 1)
-    fM = torch.cat([z, z, (w0[:, 2:] - w0[:, :-2]) // 2], 1)
-    bL = torch.cat([(w0[:, :-1] + 1 - w0[:, 1:]) // 2, z], 1)
-    bM = torch.cat([(w0[:, :-2] - w0[:, 2:]) // 2, z, z], 1)
-    d = torch.arange(Dp, dtype=torch.int32, device=w0.device)[None, :]
-    x0 = torch.clamp((d + w0) // 2 + W, 0, lXp - W)              # PADX == W
-    yr0 = torch.clamp(lY[:, None] - (d - w0) // 2 + W, 0, lYp - W)
-    xs = torch.cat([z, x0[:, 1:] - x0[:, :-1]], 1)
-    lanes = [None] * 8
-    lanes[fk.DS_FL], lanes[fk.DS_FM] = fL, fM
-    lanes[fk.DS_BL], lanes[fk.DS_BM] = bL, bM
-    lanes[fk.DS_W0], lanes[fk.DS_XMYL], lanes[fk.DS_XMYR] = w0, xl, xr
-    lanes[fk.DS_XS] = xs
-    ds = torch.stack(lanes, dim=-1)                              # (B, Dp, 8)
-    ds = torch.cat([ds, ds[:, -1:]], dim=1)[:, :, None, :].to(torch.int32)
-    x0 = torch.cat([x0, z], 1).to(torch.int32)
-    yr0 = torch.cat([yr0, z], 1).to(torch.int32)
-    return ds.contiguous(), x0.contiguous(), yr0.contiguous()
-
-
-# ---------------------------------------------------------------------------
-# Flat transport
-# ---------------------------------------------------------------------------
-
-_META_I = 12      # int32 meta lanes per problem (offsets/lengths/flags)
-(MI_RANK_OFF, MI_RANK_LEN, MI_EV_OFF, MI_EV_LEN, MI_WIN_OFF, MI_WIN_D,
- MI_BASE, MI_W00, MI_REAL) = range(9)
-
-
-def _flat_win_encode(wb: WindowBand) -> np.ndarray:
-    """Per-diagonal window stream.  w0 steps are exactly +-1 and the true
-    band lies inside the W-lane window, so the halved edge offsets are in
-    [0, W-1]: for W <= 128 one int16 word per diagonal
-    (step<<14 | uL<<7 | uR); wider windows use three int16 rows
-    [w0 delta | uL | uR]."""
-    w0 = np.asarray(wb.w0, dtype=np.int64)
-    delta = np.diff(w0)
-    uL = (np.asarray(wb.xmyL, dtype=np.int64) - w0) >> 1
-    uR = (np.asarray(wb.xmyR, dtype=np.int64) - w0) >> 1
-    assert len(delta) == 0 or (np.abs(delta) == 1).all()
-    assert uL.min(initial=0) >= 0 and uR.max(initial=0) < wb.W
-    D = len(w0)
-    if wb.W <= 128:
-        s = np.empty(D, dtype=np.int64)
-        s[0] = 0
-        s[1:] = (delta + 1) >> 1             # +-1 -> 1/0
-        return ((s << 14) | (uL << 7) | uR).astype(np.int16)
-    out = np.empty(3 * D, dtype=np.int16)
-    out[0] = 0
-    out[1:D] = delta
-    out[D:2 * D] = uL
-    out[2 * D:] = uR
-    return out
-
-
-def _unpack_win(meta_i, fw, W: int, Dp: int):
-    """Decode the window stream into (B, 3, Dp) int32 (w0, xmyL, xmyR); rows
-    past D get pad_window's stepping-w0 / empty-range rows."""
-    dev = meta_i.device
-    dd = torch.arange(Dp, dtype=torch.int32, device=dev)[None, :]
-    D = meta_i[:, MI_WIN_D:MI_WIN_D + 1]
-    wreal = dd < D
-    woff = meta_i[:, MI_WIN_OFF:MI_WIN_OFF + 1]
-    didx = torch.minimum(dd, D - 1).clamp_min(0)
-    if W <= 128:   # 1-word encoding: step<<14 | uL<<7 | uR
-        word = fw[(woff + didx).long()]
-        delta = torch.where(wreal & (dd > 0), 2 * (word >> 14) - 1, 0)
-        uL = (word >> 7) & 127
-        uR = word & 127
-    else:          # 3-row encoding
-        delta = torch.where(wreal, fw[(woff + didx).long()], 0)
-        uL = fw[(woff + D + didx).long()]
-        uR = fw[(woff + 2 * D + didx).long()]
-    w0 = meta_i[:, MI_W00:MI_W00 + 1] + torch.cumsum(delta, dim=1)
-    w0 = w0 + torch.where(wreal, 0, torch.where((dd - D) % 2 == 0, 1, 0))
-    xmyL = w0 + torch.where(wreal, 2 * uL, 2 * 10**6)
-    xmyR = w0 + torch.where(wreal, 2 * uR, 0)
-    return torch.stack([w0, xmyL, xmyR], dim=1).to(torch.int32)
-
-
-def _unpack_dev(meta_i, meta_f, flat_r, flat_w, flat_e, *, W: int, Dp: int,
-                lXp: int, lYp: int, n_tp: int, S: int):
-    """Unpack the flat transport into the padded per-problem arrays the
-    pipeline consumes."""
-    dev = meta_i.device
-    fr = flat_r.to(torch.int32)
-    fw = flat_w.to(torch.int32)
-
-    # ranks: sentinel-filled (B, lXp) with the job's codes at [W, W + len)
-    xa = torch.arange(lXp, dtype=torch.int32, device=dev)[None, :] - W
-    rlen = meta_i[:, MI_RANK_LEN:MI_RANK_LEN + 1]
-    rok = (xa >= 0) & (xa < rlen)
-    ridx = meta_i[:, MI_RANK_OFF:MI_RANK_OFF + 1] + torch.minimum(xa.clamp_min(0),
-                                                                  rlen - 1)
-    xrank = torch.where(rok, fr[ridx.long()], KMER_SENTINEL)
-
-    # events: zero-filled (B, 2, lYp) with reversed rows at [W, W + n)
-    ya = torch.arange(lYp, dtype=torch.int32, device=dev)[None, :] - W
-    elen = meta_i[:, MI_EV_LEN:MI_EV_LEN + 1]
-    eok = (ya >= 0) & (ya < elen)
-    ebase = (meta_i[:, MI_EV_OFF:MI_EV_OFF + 1]
-             + torch.minimum(ya.clamp_min(0), elen - 1)).long()
-    evm = torch.where(eok, flat_e[ebase], 0.0)
-    evn = torch.where(eok, flat_e[ebase + elen.long()], 0.0)
-    evr = torch.stack([evm, evn], dim=1)
-
-    win = _unpack_win(meta_i, fw, W, Dp)
-    lY = meta_i[:, MI_EV_LEN]
-    d_last = meta_i[:, MI_WIN_D] - 1
-    bidx = meta_i[:, MI_BASE]
-    real = meta_i[:, MI_REAL] > 0
-    scale8 = meta_f[:, :8]
-    tps = meta_f[:, 8:8 + n_tp].contiguous()
-    start = meta_f[:, 8 + n_tp:8 + n_tp + S].contiguous()
-    end = meta_f[:, 8 + n_tp + S:8 + n_tp + 2 * S].contiguous()
-    return xrank, win, lY, d_last, bidx, evr, scale8, tps, start, end, real
-
-
-def _extract_global(p, threshold: float, Kg: int, real, L: int | None = None):
+def extract_global(p, threshold: float, Kg: int, L: int | None = None):
     """Globally-compacted pair extraction: one (Kg,) slot buffer shared by
     the whole bucket, in (problem, diagonal, lane) order.  Stage 1 keeps at
     most L threshold-passing lanes per diagonal (match posteriors of one
@@ -270,7 +144,7 @@ def _extract_global(p, threshold: float, Kg: int, real, L: int | None = None):
     L = _EXTRACT_L if L is None else L
     B, Dp, W = p.shape
     dev = p.device
-    m = (p >= np.float32(threshold)) & real[:, None, None]
+    m = p >= np.float32(threshold)
     csl = torch.cumsum(m.to(torch.int32), dim=2)
     cnt_d = csl[:, :, -1]                                       # (B, Dp)
     # lane of the (s+1)-th passing cell of each diagonal -> slot s < L
@@ -298,44 +172,40 @@ def _extract_global(p, threshold: float, Kg: int, real, L: int | None = None):
     return cnt, over, outq, outi
 
 
-def _run_bucket(plan, W, Dp, lXp, lYp, Kg, n_tp, S, threshold,
-                mt, yt, gapx, meta_i, meta_f, flat_r, flat_w, flat_e):
-    """One bucket: unpack -> device packing -> the three kernels (stage 3)
-    -> pair extraction -> one int32 block [cnt | over | outq | outi]."""
-    (xrank, win, lY, d_last, bidx, evr, scale8, tps, start, end,
-     real) = _unpack_dev(meta_i, meta_f, flat_r, flat_w, flat_e,
-                         W=W, Dp=Dp, lXp=lXp, lYp=lYp, n_tp=n_tp, S=S)
-    xarr = _pack_xarr(mt, yt, gapx, bidx, xrank, scale8)
-    ds, x0, yr0 = _pack_ds(win, lY, W, lXp, lYp)
+class FastBucket(NamedTuple):
+    """A fast-lane bucket's staged arrays: numpy on the host, then tensors
+    on the device."""
+
+    xrank: object      # (B, lXp) int32 k-mer rank per x column, [W, W + lX + 1)
+                       # the job's, KMER_SENTINEL elsewhere
+    evr: object        # (B, 2, lYp) f32 reversed event rows at [W, W + lY), 0 elsewhere
+    win: object        # (B, 3, Dp) int32 window rows (pipeline.pad_window)
+    lY: object         # (B,) int32
+    d_last: object     # (B,) int32
+    bidx: object       # (B,) int32 slot of the job's base model in the tables
+    scale8: object     # (B, 8) f32 (see _pack_xarr)
+    tp_scalar: object  # (B, n) f32
+    start: object      # (B, S) f32
+    end: object        # (B, S) f32
+
+
+def _run_bucket(plan, W: int, Kg: int, threshold: float, mt, yt, gapx, b: FastBucket):
+    """One bucket on its device: the parameter pack and the per-diagonal
+    rows, the three kernels (stage 3), the pair extraction -> one int32
+    block [cnt | over | outq | outi]."""
+    xarr = _pack_xarr(mt, yt, gapx, b.bidx, b.xrank, b.scale8)
+    ds, x0, yr0 = pp.band_scalars(b.win, b.lY, W, b.xrank.shape[1], b.evr.shape[2])
     prob = pp.SM3Problem(
-        xarr=xarr.contiguous(), evr=evr.contiguous(), x0=x0, yr0=yr0,
-        diag_scalars=ds, d_last=d_last.contiguous(), start=start, end=end,
-        tp_scalar=tps, xrank=xrank)
+        xarr=xarr.contiguous(), evr=b.evr, x0=x0, yr0=yr0, diag_scalars=ds,
+        d_last=b.d_last, start=b.start, end=b.end, tp_scalar=b.tp_scalar,
+        xrank=b.xrank)
     p, _totals = pp.run_sm3(plan, W, prob)
-    cnt, over, outq, outi = _extract_global(p, threshold, Kg, real)
-    return torch.cat([cnt, over, outq, outi])
+    return torch.cat(extract_global(p, threshold, Kg))
 
 
 # ---------------------------------------------------------------------------
 # Host staging
 # ---------------------------------------------------------------------------
-
-def pad_window(wb: WindowBand, Dp: int):
-    """(3, Dp) int32 (w0, xmyL, xmyR) padded past D with stepping-w0 rows
-    whose xmy range is empty."""
-    D = wb.n_diagonals
-    out = np.empty((3, Dp), dtype=np.int32)
-    out[0, :D] = wb.w0
-    out[1, :D] = wb.xmyL
-    out[2, :D] = wb.xmyR
-    if Dp > D:
-        i = np.arange(Dp - D)
-        w0p = wb.w0[D - 1] + np.where(i % 2 == 0, 1, 0)
-        out[0, D:] = w0p
-        out[1, D:] = w0p + 2 * 10**6     # empty range: xmyL > xmyR
-        out[2, D:] = w0p
-    return out
-
 
 @dataclass
 class _FastJob:
@@ -379,41 +249,10 @@ def stage_fast_job(job, wband: WindowBand):
         ranks=np.asarray(sm.kmer_ranks, dtype=np.int32),
         events=np.asarray(events),
         wband=wband,
-        tp_scalar=pp._san(tp_scalar),
-        start=pp._san(sm.ragged_start if job.ragged_left else sm.start),
-        end=pp._san(sm.ragged_end if job.ragged_right else sm.end),
+        tp_scalar=pp.finite_f32(tp_scalar),
+        start=pp.finite_f32(sm.ragged_start if job.ragged_left else sm.start),
+        end=pp.finite_f32(sm.ragged_end if job.ragged_right else sm.end),
         off_x=job.off_x, off_y=job.off_y), plan
-
-
-def _chunk_sizes(n: int, Dp: int = 256) -> list[int]:
-    """Greedy decomposition of n into allowed batch sizes; the final chunk is
-    padded up to the smallest allowed size that fits.  The chunk cap shrinks
-    as Dp grows so a bucket's device footprint stays bounded."""
-    big = _ALLOWED_B[-1]
-    while big > 1 and big * Dp > 512 * 1024:
-        big //= 2
-    out = []
-    for s in sorted((b for b in _ALLOWED_B if b <= big), reverse=True):
-        while n >= s:
-            out.append(s)
-            n -= s
-    if n > 0:
-        out.append(next(b for b in _ALLOWED_B if b >= n))
-    return out
-
-
-def _collect_packed(handles: list[torch.Tensor]) -> list[np.ndarray]:
-    """ONE device-to-host copy for all pending buckets: the packed outputs
-    are concatenated on the device and split on the host."""
-    if not handles:
-        return []
-    combined = torch.cat([h.reshape(-1) for h in handles]).cpu().numpy()
-    out = []
-    off = 0
-    for h in handles:
-        out.append(combined[off:off + h.numel()].reshape(h.shape))
-        off += h.numel()
-    return out
 
 
 def _decode_global(packed, chunk, staged, W, Dp, Kg, out):
@@ -445,101 +284,70 @@ def _decode_global(packed, chunk, staged, W, Dp, Kg, out):
                                x - 1 + job.off_x, y - 1 + job.off_y)
 
 
-def _flat(parts, dtype, quantum=2048) -> np.ndarray:
-    n = sum(len(p) for p in parts)
-    buf = np.zeros(_round_up(max(n, 1), quantum), dtype=dtype)
-    if n:
-        np.concatenate(parts, out=buf[:n])
-    return buf
+def _stage_rows(jobs, Dp: int):
+    """The rows every lane stages per job: window rows (B, 3, Dp), d_last
+    (B,), tp_scalar (B, n), start and end (B, S)."""
+    return (np.stack([pp.pad_window(j.wband, Dp) for j in jobs]),
+            np.array([j.wband.n_diagonals - 1 for j in jobs], dtype=np.int32),
+            np.stack([j.tp_scalar for j in jobs]), np.stack([j.start for j in jobs]),
+            np.stack([j.end for j in jobs]))
+
+
+def _stage_fast_bucket(jobs: list[_FastJob], slots: list[int], W: int, Dp: int,
+                       lXp: int, lYp: int) -> FastBucket:
+    """Host staging of one fast-lane bucket (numpy); ``slots`` are the jobs'
+    base-table slots."""
+    B = len(jobs)
+    xrank = np.full((B, lXp), KMER_SENTINEL, dtype=np.int32)
+    evr = np.zeros((B, 2, lYp), dtype=np.float32)
+    for b, fj in enumerate(jobs):
+        xrank[b, W:W + len(fj.ranks)] = fj.ranks
+        evr[b, :, W:W + len(fj.events)] = fj.events[::-1, :2].T
+    win, d_last, tp_scalar, start, end = _stage_rows(jobs, Dp)
+    return FastBucket(xrank, evr, win, np.array([len(fj.events) for fj in jobs], np.int32),
+                      d_last, np.array(slots, dtype=np.int32),
+                      np.stack([fj.scale8 for fj in jobs]), tp_scalar, start, end)
 
 
 def dispatch_fast_jobs(staged: list[tuple[int, _FastJob, object]],
                        threshold: float, *, device: torch.device) -> list:
-    """Group, stage and dispatch all staged jobs (asynchronously on CUDA);
-    returns the pending list for collect_fast_jobs.  Buckets key on
-    (plan, W, Dp rung, gapX table); problems of up to _NBASE base models
-    share a bucket through the stacked tables."""
-    groups: dict[tuple, list[int]] = {}
-    for si, (_ji, fj, plan) in enumerate(staged):
-        key = (plan, fj.wband.W, _dp_ladder(fj.wband.n_diagonals + 2), fj.gapx_key)
-        groups.setdefault(key, []).append(si)
-
+    """Bucket, stage and dispatch all staged jobs (asynchronously on CUDA);
+    returns the pending list for collect_fast_jobs.  Buckets key on (plan,
+    W, Dp rung, gapX table, base-model set): the base models, in order of
+    first use, form sets of _NBASE that share a bucket's stacked tables;
+    a bucket holds at most FAST_DIAGONALS padded diagonals."""
+    bases: list = []
+    slot: dict[int, int] = {}
+    keys, sizes = [], []
+    for _ji, fj, plan in staged:
+        if id(fj.base) not in slot:
+            slot[id(fj.base)] = len(bases)
+            bases.append(fj.base)
+        Dp = _dp_ladder(fj.wband.n_diagonals + 2)
+        keys.append((plan, fj.wband.W, Dp, fj.gapx_key, slot[id(fj.base)] // _NBASE))
+        sizes.append(Dp)
+    tables: dict[int, tuple] = {}
+    gapx_tables: dict[object, torch.Tensor] = {}
     pending = []   # (staged, chunk, handle, W, Dp, Kg)
-    for (plan, W, Dp, _gk), sidx in groups.items():
-        lXp = _round_up(Dp + 1 + 2 * W + 2 * 128, 128)
-        lYp = lXp
-        subgroups: list[tuple[list, list]] = []   # (bases, staged indices)
-        for si in sidx:
-            fj = staged[si][1]
-            if not subgroups or len(subgroups[-1][0]) >= _NBASE and \
-                    id(fj.base) not in {id(b) for b in subgroups[-1][0]}:
-                subgroups.append(([], []))
-            bases, members = subgroups[-1]
-            if id(fj.base) not in {id(b) for b in bases}:
-                bases.append(fj.base)
-            members.append(si)
-        for bases, members in subgroups:
-            mt, yt = _table_stack(bases, device)
-            base_slot = {id(b): i for i, b in enumerate(bases)}
-            gapx = _gapx_table(staged[members[0]][1].gapx, device)
-            fj0 = staged[members[0]][1]
-            n_tp = len(fj0.tp_scalar)
-            S = len(fj0.start)
-            pos = 0
-            for B in _chunk_sizes(len(members), Dp):
-                chunk = members[pos:pos + B]
-                pos += len(chunk)
-                idxs = chunk + [chunk[-1]] * (B - len(chunk))
-                meta_i = np.zeros((B, _META_I), dtype=np.int32)
-                meta_f = np.zeros((B, 8 + n_tp + 2 * S), dtype=np.float32)
-                ranks_l, win_l, ev_l = [], [], []
-                ro = wo = eo = 0
-                sum_ev = 0
-                for bi, si in enumerate(idxs):
-                    fj = staged[si][1]
-                    r = fj.ranks
-                    ev = fj.events
-                    D = fj.wband.n_diagonals
-                    real = bi < len(chunk)
-                    meta_i[bi, MI_RANK_OFF] = ro
-                    meta_i[bi, MI_RANK_LEN] = len(r)
-                    meta_i[bi, MI_EV_OFF] = eo
-                    meta_i[bi, MI_EV_LEN] = len(ev)
-                    meta_i[bi, MI_WIN_OFF] = wo
-                    meta_i[bi, MI_WIN_D] = D
-                    meta_i[bi, MI_BASE] = base_slot[id(fj.base)]
-                    meta_i[bi, MI_W00] = int(fj.wband.w0[0])
-                    meta_i[bi, MI_REAL] = 1 if real else 0
-                    if real:
-                        wenc = _flat_win_encode(fj.wband)
-                        ranks_l.append(r.astype(np.int16))
-                        win_l.append(wenc)
-                        ev_l.append(np.concatenate(
-                            [ev[::-1, 0], ev[::-1, 1]]).astype(np.float32))
-                        ro += len(r)
-                        wo += len(wenc)
-                        eo += 2 * len(ev)
-                        sum_ev += len(ev)
-                    else:
-                        # padding rows reuse the previous job's segments
-                        wlen = D if W <= 128 else 3 * D
-                        meta_i[bi, MI_RANK_OFF] = ro - len(r)
-                        meta_i[bi, MI_EV_OFF] = eo - 2 * len(ev)
-                        meta_i[bi, MI_WIN_OFF] = wo - wlen
-                    meta_f[bi, :8] = fj.scale8
-                    meta_f[bi, 8:8 + n_tp] = fj.tp_scalar
-                    meta_f[bi, 8 + n_tp:8 + n_tp + S] = fj.start
-                    meta_f[bi, 8 + n_tp + S:] = fj.end
-
-                # pair capacity ~1 per event observed; 1.2x + slack, with the
-                # full-grid re-route catching the (rare) spill
-                Kg = _round_up(sum_ev + sum_ev // 5 + 512, 2048)
-                bufs = [pp.to_device(a, device) for a in (
-                    meta_i, meta_f, _flat(ranks_l, np.int16),
-                    _flat(win_l, np.int16), _flat(ev_l, np.float32))]
-                handle = _run_bucket(plan, W, Dp, lXp, lYp, Kg, n_tp, S,
-                                     float(threshold), mt, yt, gapx, *bufs)
-                pending.append((staged, chunk, handle, W, Dp, Kg))
+    for (plan, W, Dp, gapx_key, base_set), chunk in pp.launch_groups(keys, sizes,
+                                                                      FAST_DIAGONALS):
+        jobs = [staged[si][1] for si in chunk]
+        if base_set not in tables:
+            tables[base_set] = _table_stack(bases[base_set * _NBASE:(base_set + 1) * _NBASE],
+                                            device)
+        if gapx_key not in gapx_tables:
+            gapx_tables[gapx_key] = _gapx_table(jobs[0].gapx, device)
+        lXp = round_up(Dp + 1 + 2 * W + 2 * 128, 128)
+        host = _stage_fast_bucket(jobs, [slot[id(fj.base)] % _NBASE for fj in jobs],
+                                  W, Dp, lXp, lXp)
+        # pair capacity ~1 per event observed; 1.2x + slack, with the
+        # full-grid re-route catching the (rare) spill
+        n_ev = sum(len(fj.events) for fj in jobs)
+        Kg = round_up(n_ev + n_ev // 5 + 512, 2048)
+        handle = _run_bucket(plan, W, Kg, float(threshold), *tables[base_set],
+                             gapx_tables[gapx_key],
+                             FastBucket(*(pp.to_device(a, device) for a in host)))
+        pending.append((staged, chunk, handle, W, Dp, Kg))
     return pending
 
 
@@ -547,22 +355,12 @@ def collect_fast_jobs(pending: list, *, timing: dict | None = None) -> dict[int,
     """Single-copy collection + host decode of any number of dispatched
     waves (their pending lists concatenated)."""
     with timed("device_wait", timing):
-        packed_of = _collect_packed([p[2] for p in pending])
+        packed_of = pp.to_host([p[2] for p in pending])
     out: dict[int, object] = {}
     with timed("host_extract", timing):
         for (staged, chunk, _handle, W, Dp, Kg), packed in zip(pending, packed_of):
             _decode_global(packed, chunk, staged, W, Dp, Kg, out)
     return out
-
-
-def run_fast_jobs(staged: list[tuple[int, _FastJob, object]], threshold: float,
-                  *, device: torch.device, timing: dict | None = None) -> dict[int, object]:
-    """Dispatch all staged jobs (list of (job_index, _FastJob, plan)), then
-    collect and decode.  Returns {job_index: AlignedPairs}, with overflowed
-    jobs mapped to None for the caller's full-grid re-route."""
-    with timed("host_pack", timing):
-        pending = dispatch_fast_jobs(staged, threshold, device=device)
-    return collect_fast_jobs(pending, timing=timing)
 
 
 # ---------------------------------------------------------------------------
@@ -571,8 +369,8 @@ def run_fast_jobs(staged: list[tuple[int, _FastJob, object]], threshold: float,
 # The realign and nucleotide-EM machines emit from tiny symbol tables (5x5
 # match, 5 gap rows, stateMachine.c:60-194), so E is a gather of the per-cell
 # symbol-code pair, built on the device from two small code arrays instead of
-# a host-packed (Dp, 3, W) grid.  The upload is the int8 codes, the window
-# stream and small meta blocks; alignment reads back the compacted pairs.
+# a host-packed (Dp, 3, W) grid.  The upload is the padded codes, the window
+# rows and the per-problem rows; alignment reads back the compacted pairs.
 
 @dataclass
 class _SymJob:
@@ -602,14 +400,14 @@ def stage_symbol_job(job, wband: WindowBand):
     plan, tp_scalar, cell_sources = _build_plan(sm, "exact")
     if cell_sources:
         return None
-    mt, gx, gy = (pp._san(t) for t in tables)
+    mt, gx, gy = (pp.finite_f32(t) for t in tables)
     cx, cy = codes
     return _SymJob(
         tab_key=mt.tobytes() + gx.tobytes() + gy.tobytes(), match_t=mt, gapx_t=gx,
         gapy_t=gy, cx=np.asarray(cx, dtype=np.int32), cy=np.asarray(cy, dtype=np.int32),
-        wband=wband, tp_scalar=pp._san(tp_scalar),
-        start=pp._san(sm.ragged_start if job.ragged_left else sm.start),
-        end=pp._san(sm.ragged_end if job.ragged_right else sm.end),
+        wband=wband, tp_scalar=pp.finite_f32(tp_scalar),
+        start=pp.finite_f32(sm.ragged_start if job.ragged_left else sm.start),
+        end=pp.finite_f32(sm.ragged_end if job.ragged_right else sm.end),
         off_x=job.off_x, off_y=job.off_y), plan
 
 
@@ -727,110 +525,73 @@ def extract_compact(p: torch.Tensor, threshold: float, K: int, L: int | None = N
 def symbol_buckets(staged) -> list[tuple]:
     """Buckets of staged symbol jobs, for realignment and the nucleotide
     E-step alike: one (plan, W, Dp rung, table set) each, consecutive jobs,
-    at most MAX_BUCKET problems and BUCKET_CELLS window cells (one job at
-    least).  Returns [(plan, W, Dp, staged indices)]."""
-    groups: dict[tuple, list[int]] = {}
-    for si, (_ji, sj, plan) in enumerate(staged):
-        key = (plan, sj.wband.W, _dp_ladder(sj.wband.n_diagonals + 2), sj.tab_key)
-        groups.setdefault(key, []).append(si)
-    out = []
-    for (plan, W, Dp, _tk), sidx in groups.items():
-        cap = max(1, min(MAX_BUCKET, BUCKET_CELLS // (Dp * W)))
-        out += [(plan, W, Dp, sidx[lo:lo + cap]) for lo in range(0, len(sidx), cap)]
-    return out
+    at most BUCKET_CELLS window cells (pipeline.launch_groups).  Returns
+    [(plan, W, Dp, staged indices)]."""
+    keys, sizes = [], []
+    for _ji, sj, plan in staged:
+        Dp = _dp_ladder(sj.wband.n_diagonals + 2)
+        keys.append((plan, sj.wband.W, Dp, sj.tab_key))
+        sizes.append(Dp * sj.wband.W)
+    return [(plan, W, Dp, chunk) for (plan, W, Dp, _tk), chunk
+            in pp.launch_groups(keys, sizes, BUCKET_CELLS)]
 
 
-def stage_symbol_bucket(staged, idxs, device: torch.device):
-    """Host staging of one bucket of symbol jobs (``idxs`` into ``staged``):
-    the flat int8 code stream, the window stream and the meta blocks,
-    uploaded to ``device``.  Returns (tensors, the jobs' y codes)."""
-    sj0 = staged[idxs[0]][1]
-    n_tp, S = len(sj0.tp_scalar), len(sj0.start)
-    B = len(idxs)
-    meta_i = np.zeros((B, _META_I), dtype=np.int32)
-    meta_f = np.zeros((B, n_tp + 2 * S), dtype=np.float32)
-    codes_l, win_l = [], []
-    co = wo = n_cy = 0
-    for bi, si in enumerate(idxs):
-        sj = staged[si][1]
-        D = sj.wband.n_diagonals
-        meta_i[bi, MI_RANK_LEN] = len(sj.cx)
-        meta_i[bi, MI_EV_LEN] = len(sj.cy)
-        meta_i[bi, MI_WIN_D] = D
-        meta_i[bi, MI_W00] = int(sj.wband.w0[0])
-        meta_i[bi, MI_REAL] = 1
-        meta_i[bi, MI_RANK_OFF] = co
-        meta_i[bi, MI_EV_OFF] = co + len(sj.cx)
-        meta_i[bi, MI_WIN_OFF] = wo
-        wenc = _flat_win_encode(sj.wband)
-        codes_l += [sj.cx.astype(np.int8), sj.cy.astype(np.int8)]
-        win_l.append(wenc)
-        co += len(sj.cx) + len(sj.cy)
-        wo += len(wenc)
-        n_cy += len(sj.cy)
-        meta_f[bi, :n_tp] = sj.tp_scalar
-        meta_f[bi, n_tp:n_tp + S] = sj.start
-        meta_f[bi, n_tp + S:] = sj.end
-    tables = (sj0.match_t, sj0.gapx_t, sj0.gapy_t)
-    bufs = [pp.to_device(a, device) for a in (
-        *tables, meta_i, meta_f, _flat(codes_l, np.int8), _flat(win_l, np.int16))]
-    return bufs, n_cy
+class SymbolBucket(NamedTuple):
+    """A symbol-lane bucket's staged arrays on its device."""
+
+    cx: torch.Tensor         # (B, Dp + 2) int32 x codes (slot 0: x = -1), 4 (N) past the end
+    cy: torch.Tensor         # (B, Dp + 2) int32 y codes
+    win: torch.Tensor        # (B, 3, Dp) int32 window rows (pipeline.pad_window)
+    d_last: torch.Tensor     # (B,) int32
+    tp_scalar: torch.Tensor  # (B, n) f32
+    start: torch.Tensor      # (B, S) f32
+    end: torch.Tensor        # (B, S) f32
 
 
-def symbol_problem(W: int, Dp: int, n_tp: int, S: int, mt, gx, gy, meta_i, meta_f,
-                   flat_c, flat_w):
-    """Device unpack of a staged symbol bucket into the window problem the
-    kernels take (E from ``symbol_emissions``, the DS_* scalars from the
-    window stream).  Returns (WindowProblem, cxp, cyp, real)."""
-    dev = meta_i.device
-    Lc = Dp + 2
-    fc = flat_c.to(torch.int32)
-    la = torch.arange(Lc, dtype=torch.int32, device=dev)[None, :]
+def stage_symbol_bucket(staged, idxs, Dp: int, device: torch.device):
+    """Host staging of one bucket of symbol jobs (``idxs`` into ``staged``)
+    padded to Dp diagonals, uploaded to ``device``.  Returns (the tables
+    (match, gapX, gapY), the SymbolBucket, the count of the jobs' y
+    codes)."""
+    jobs = [staged[si][1] for si in idxs]
+    codes = np.full((2, len(jobs), Dp + 2), 4, dtype=np.int32)
+    for b, sj in enumerate(jobs):
+        codes[0, b, :len(sj.cx)] = sj.cx
+        codes[1, b, :len(sj.cy)] = sj.cy
+    tables = tuple(pp.to_device(t, device) for t in (jobs[0].match_t, jobs[0].gapx_t,
+                                                     jobs[0].gapy_t))
+    bucket = SymbolBucket(*(pp.to_device(a, device)
+                            for a in (codes[0], codes[1], *_stage_rows(jobs, Dp))))
+    return tables, bucket, sum(len(sj.cy) for sj in jobs)
 
-    def codes(off, ln):
-        n = meta_i[:, ln:ln + 1]
-        idx = meta_i[:, off:off + 1] + torch.minimum(la, n - 1)
-        return torch.where(la < n, fc[idx.long()], 4)
 
-    cxp = codes(MI_RANK_OFF, MI_RANK_LEN)
-    cyp = codes(MI_EV_OFF, MI_EV_LEN)
-    win = _unpack_win(meta_i, flat_w.to(torch.int32), W, Dp)
-    lY = meta_i[:, MI_EV_LEN] - 1
-    d_last = meta_i[:, MI_WIN_D] - 1
-    # code arrays this long never clip the emission offsets, so DS_XS is
-    # the x-window step exactly as pipeline.make_window_problem sets it
-    Lq = Dp + 2 * W + 128
-    ds, x0, _yr0 = _pack_ds(win, lY, W, Lq, Lq)
-    E = symbol_emissions(mt, gx, gy, cxp, cyp, win[:, 0], d_last, W)
-    prob = pp.WindowProblem(
-        E=E, diag_scalars=ds, d_last=d_last.contiguous(),
-        start=meta_f[:, n_tp:n_tp + S].contiguous(),
-        end=meta_f[:, n_tp + S:n_tp + 2 * S].contiguous(),
-        tp_scalar=meta_f[:, :n_tp].contiguous(),
-        x0=torch.cat([x0[:, :Dp], x0[:, Dp - 1:Dp]], 1) - W)   # _pack_ds pads x by W
-    return prob, cxp, cyp, meta_i[:, MI_REAL] > 0
+def symbol_problem(W: int, tables, b: SymbolBucket) -> pp.WindowProblem:
+    """The window problem the kernels take of a staged symbol bucket, built
+    on its device: E from ``symbol_emissions``, the DS_* rows and x0 from
+    its window rows."""
+    ds, x0 = pp.window_band_scalars(b.win, W)
+    E = symbol_emissions(*tables, b.cx, b.cy, b.win[:, 0], b.d_last, W)
+    return pp.WindowProblem(E=E, diag_scalars=ds, d_last=b.d_last, start=b.start,
+                            end=b.end, tp_scalar=b.tp_scalar, x0=x0)
 
 
 def run_symbol_jobs(staged: list[tuple[int, _SymJob, object]], threshold: float,
                     *, device: torch.device, timing: dict | None = None
                     ) -> dict[int, object]:
     """The symbol lane's alignment (run_symbol_jobs, nh = 1): buckets of
-    ``symbol_buckets``, each unpacked, its E gathered, forward and stage-3
+    ``symbol_buckets``, each staged, its E gathered, forward and stage-3
     backward, and its pairs compacted on the device; all buckets dispatched,
     then collected with one copy.  Returns {job_index: AlignedPairs}, None
     for a job whose pairs overflowed (the caller's full-grid re-route)."""
     pending = []
     with timed("host_pack", timing):
         for plan, W, Dp, chunk in symbol_buckets(staged):
-            sj0 = staged[chunk[0]][1]
-            bufs, n_cy = stage_symbol_bucket(staged, chunk, device)
+            tables, bucket, n_cy = stage_symbol_bucket(staged, chunk, Dp, device)
             # nucleotide posteriors spread more mass off the diagonal than the
             # signal lane's: room for 2 pairs a y position, the full-grid
             # re-route catching the rare spill
-            Kg = _round_up(2 * n_cy + 512, 2048)
-            prob, _cxp, _cyp, real = symbol_problem(W, Dp, len(sj0.tp_scalar),
-                                                    len(sj0.start), *bufs)
-            p, _totals = pp.run_window(plan, W, prob)
-            cnt, over, outq, outi = _extract_global(p, threshold, Kg, real)
-            pending.append((staged, chunk, torch.cat([cnt, over, outq, outi]), W, Dp, Kg))
+            Kg = round_up(2 * n_cy + 512, 2048)
+            p, _totals = pp.run_window(plan, W, symbol_problem(W, tables, bucket))
+            pending.append((staged, chunk, torch.cat(extract_global(p, threshold, Kg)),
+                            W, Dp, Kg))
     return collect_fast_jobs(pending, timing=timing)

@@ -349,11 +349,8 @@ def _symbol_bucket(staged, W, device):
 
     n = len(staged)
     Dp = max(sj.wband.n_diagonals for _i, sj, _p in staged) + 3
-    bufs, _n = readpath.stage_symbol_bucket(staged, list(range(n)), device)
-    sj0 = staged[0][1]
-    prob, _cx, _cy, _real = readpath.symbol_problem(W, Dp, len(sj0.tp_scalar),
-                                                    len(sj0.start), *bufs)
-    return staged[0][2], prob
+    tables, bucket, _n = readpath.stage_symbol_bucket(staged, list(range(n)), Dp, device)
+    return staged[0][2], readpath.symbol_problem(W, tables, bucket)
 
 
 def _bound_sm5(sx, sy):
@@ -491,7 +488,7 @@ def test_cuda_em_step_counts_sm_slots(cuda_device, monkeypatch):
 
     assert fk.recursion_blocks_per_sm(3, 3, 1024, 0) == 1
     assert all(fk.recursion_blocks_per_sm(3, 3, W, 0) >= 1 for W in range(32, 1025, 32))
-    monkeypatch.setattr(sm3_em, "MAX_BUCKET", 2)
+    monkeypatch.setattr(sm3_em.pp, "MAX_BUCKET", 2)
     jobs = _em_jobs(np.random.default_rng(7), (30, 44, 38, 52, 41))
     buckets = sm3_em.build_sm3_em_buckets(jobs, device=cuda_device, width_multiple=64)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
@@ -513,7 +510,7 @@ def test_cuda_em_step_counts_sm_slots(cuda_device, monkeypatch):
 ])
 def test_cuda_emissions_match_plain_bit_for_bit(W, Dp, B, offsets, cuda_device):
     """The tiled emissions kernel equals its plain version bit for bit on
-    band offsets (readpath._pack_ds of random +-1 walks, both clamps away)
+    band offsets (pipeline.band_scalars of random +-1 walks, both clamps away)
     and off the band (every other tile's offsets random past both ends of
     the rows), at the launch shapes' edges."""
     import chip_smoke

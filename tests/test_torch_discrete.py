@@ -169,11 +169,10 @@ def test_symbol_emissions_match_host_packing():
             staged.append((i, sj, plan))
         assert staged
         Dp = trp._dp_ladder(max(s[1].wband.n_diagonals for s in staged) + 2)
-        bufs, _n = trp.stage_symbol_bucket(staged, list(range(len(staged))), CPU)
-        sj0 = staged[0][1]
-        prob, _cx, _cy, real = trp.symbol_problem(W, Dp, len(sj0.tp_scalar), len(sj0.start),
-                                                  *bufs)
-        assert prob.E.shape == (len(staged), Dp + 2, 3, W) and real.all()
+        tables, bucket, _n = trp.stage_symbol_bucket(staged, list(range(len(staged))), Dp,
+                                                     CPU)
+        prob = trp.symbol_problem(W, tables, bucket)
+        assert prob.E.shape == (len(staged), Dp + 2, 3, W)
         for bi, (i, sj, _p) in enumerate(staged):
             job = tjobs[i]
             hplan, host = tpp.make_window_problem(job.sm, sj.wband, device=CPU,
@@ -237,7 +236,7 @@ def test_discrete_tallies_independent_of_bucketing(em_case, monkeypatch):
     _cases, _jj, tj, _owners, _want = em_case
     together = tdisc.discrete_expectations_batched(tj, device=CPU)
     reverse = tdisc.discrete_expectations_batched(tj[::-1], device=CPU)[::-1]
-    monkeypatch.setattr(trp, "MAX_BUCKET", 1)
+    monkeypatch.setattr(trp.pp, "MAX_BUCKET", 1)
     timing = {}
     alone = tdisc.discrete_expectations_batched(tj, device=CPU, timing=timing)
     assert timing["buckets"] == len(tj)
@@ -287,12 +286,15 @@ def test_symbol_overflow_reroutes_to_full_grid(monkeypatch):
     (sx, sy, anchors), = _pairs(5, (48,))
     _jj, tj, _o = _jobs([(sx, sy, anchors)], ragged=True)
     want = tba.batch_align_jobs(tj, 0.01, device=CPU)
-    calls = []
-    real = tba._run_generic_buckets
+    calls, packed = [], []
+    real, pack = tba._run_generic_buckets, tba.pp.pack_window_bucket
     monkeypatch.setattr(tba, "_run_generic_buckets",
                         lambda *a, **k: calls.append(a[2]) or real(*a, **k))
+    monkeypatch.setattr(tba.pp, "pack_window_bucket", lambda items, device: packed.append(
+        [(sm.spec.name, wb.W) for sm, wb, *_r in items]) or pack(items, device))
     monkeypatch.setattr(trp, "_EXTRACT_L", 0)
     got = tba.batch_align_jobs(tj, 0.01, device=CPU)
-    assert calls and list(calls[0]) == [("fiveState", tba.job_window(tj[0].band).W)]
+    assert calls and list(calls[0]) == [0]
+    assert packed == [[("fiveState", tba.job_window(tj[0].band).W)]]
     for g, w in zip(got, want):
         assert _agree(g, w) == (0, 0.0)

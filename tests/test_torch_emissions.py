@@ -5,8 +5,8 @@ Kernel 1), on the CPU:
     by 0 or -1 (padded diagonals and both clamps included), so K consecutive
     diagonals read at most K - 1 + W columns of each row: the offsets of the
     main path's launches (readpath, recorded from batch_align_jobs), of
-    pipeline.make_sm3_problem, and of readpath._pack_ds on walks that meet
-    both clamps;
+    pipeline.make_sm3_problem, and of the one window-row builder,
+    pipeline.band_scalars, on walks that meet both clamps;
   * the launch configuration's Python mirror (fb_kernels.emission_config)
     fits the 227 KB of shared memory a block may use at every width, and
     stages at least K - 1 + W columns a row;
@@ -91,8 +91,8 @@ def test_main_path_offsets_step_by_one(pore, monkeypatch):
 
 
 def test_host_problem_offsets_step_by_one(pore):
-    """pipeline.make_sm3_problem on random windows, padded past their last
-    diagonal (Dp a rung above D)."""
+    """pipeline.make_sm3_problem (pad_window and band_scalars) on random
+    windows, padded past their last diagonal (Dp a rung above D)."""
     rng = np.random.default_rng(23)
     for n_bases, expansion, W in ((60, 20, 64), (200, 50, 128), (120, 8, 32)):
         target = "".join(rng.choice(list("ACGT"), n_bases))
@@ -106,8 +106,8 @@ def test_host_problem_offsets_step_by_one(pore):
 
 
 def test_pack_ds_offsets_step_by_one_at_both_clamps():
-    """readpath._pack_ds on random +-1 walks of w0 whose offsets run into
-    0 and into lXp - W (lYp - W) within the same problems."""
+    """pipeline.band_scalars on random +-1 walks of w0 whose offsets run
+    into 0 and into lXp - W (lYp - W) within the same problems."""
     rng = np.random.default_rng(29)
     B, Dp, W = 6, 900, 64
     lXp, lYp = 384, 320

@@ -92,7 +92,7 @@ def test_generic_buckets_split_by_size(monkeypatch):
             mp.setattr(tba.pp, "run_window",
                        lambda plan, W, b, **kw: sizes.append(len(b.E)) or real(plan, W, b, **kw))
             for name, value in limits.items():
-                mp.setattr(tba, name, value)
+                mp.setattr(tba.pp if name == "MAX_BUCKET" else tba, name, value)
             return tba.batch_align_jobs(jobs, params.threshold, device=CPU), sizes
 
     whole, whole_sizes = run()

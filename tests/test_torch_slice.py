@@ -1,8 +1,8 @@
 """PyTorch port: the whole threeState slice on the CPU.
 
-  * the fast lane's device-side packing (flat-transport unpack, model
-    scaling and Gauss pack, window scalars, pair extraction) against the JAX
-    fast lane's functions on the same inputs;
+  * the fast lane's staged bucket arrays, model scaling and Gauss pack,
+    per-diagonal rows and pair extraction against the JAX fast lane's
+    decode of its flat transport of the same jobs and its functions;
   * batch_align_jobs against the JAX fast lane (interpret mode) and the f64
     oracle align_events_to_target, on fresh seeds of
     tests/test_readpath_random._threestate_cases, at its tolerances: <= 1
@@ -25,10 +25,12 @@ from cpecan_signal_tpu.engine import readpath as jrp
 from cpecan_signal_tpu_torch import synthetic as syn
 from cpecan_signal_tpu_torch.cli import signal_align as sa
 from cpecan_signal_tpu_torch.engine import batch_align as tba
+from cpecan_signal_tpu_torch.engine import pipeline as tpp
 from cpecan_signal_tpu_torch.engine import readpath as trp
 from cpecan_signal_tpu_torch.engine.align import SplitJob
 from test_readpath_random import _pairs_match, _threestate_cases
 from test_torch_generic_cli import assert_columns_agree
+from test_torch_staging import jax_flat_staging
 
 CPU = torch.device("cpu")
 
@@ -43,24 +45,31 @@ def cases():
 
 @pytest.fixture(scope="module")
 def port_run(cases):
-    """The port's lane on the cases, with every bucket's inputs recorded."""
+    """The port's lane on the cases, with every bucket's staging (its jobs,
+    their base slots and the staged host arrays) and run (its tables and
+    device arrays) recorded."""
     params, _jobs, port_jobs, _wants = cases
-    seen = []
-    run_bucket = trp._run_bucket
+    staged, ran = [], []
+    stage, run_bucket = trp._stage_fast_bucket, trp._run_bucket
 
-    def spy(*args):
-        seen.append(args)
+    def stage_spy(jobs, slots, *args):
+        staged.append((jobs, slots, stage(jobs, slots, *args)))
+        return staged[-1][2]
+
+    def run_spy(*args):
+        ran.append(args)
         return run_bucket(*args)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(trp, "_run_bucket", spy)
+        mp.setattr(trp, "_stage_fast_bucket", stage_spy)
+        mp.setattr(trp, "_run_bucket", run_spy)
         got = tba.batch_align_jobs(port_jobs, params.threshold, device=CPU)
-    return got, seen
+    return got, staged, ran
 
 
 def test_slice_matches_jax_fast_lane_and_oracle(cases, port_run):
     params, jobs, _port_jobs, wants = cases
-    got, _seen = port_run
+    got, _staged, _ran = port_run
     jax_got = jba.batch_align_jobs(jobs, params.threshold, interpret=True)
     assert len(got) == len(wants) == 7
     for g, j, w in zip(got, jax_got, wants):
@@ -85,63 +94,68 @@ def test_overflow_reroute_matches(cases, monkeypatch):
 
 
 def test_device_packing_matches_jax(port_run):
-    """Every bucket's on-device packing equals the JAX fast lane's on the
-    same flat-transport inputs: unpack, window scalars and extraction
-    exactly; the f32 model scaling + Gauss pack to 1 ulp of log(sd)
-    (torch's and XLA's f32 log may round differently, 6e-8 absolute at
-    |log(sd)| < 1, seen after the cancellation in logc = -0.919 - log(sd))."""
-    _got, seen = port_run
-    assert seen
-    for (plan, W, Dp, lXp, lYp, Kg, n_tp, S, thr, mt, yt, gapx, meta_i, meta_f,
-         flat_r, flat_w, flat_e) in seen:
-        kw = dict(W=W, Dp=Dp, lXp=lXp, lYp=lYp, n_tp=n_tp, S=S)
-        t = trp._unpack_dev(meta_i, meta_f, flat_r, flat_w, flat_e, **kw)
-        j = jrp._unpack_dev(*(jnp.asarray(a.numpy()) for a in
-                              (meta_i, meta_f, flat_r, flat_w, flat_e)), **kw)
-        for a, b in zip(t, j):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        xrank, win, lY, _dl, bidx, _evr, scale8, *_rest, real = t
-        xa = trp._pack_xarr(mt, yt, gapx, bidx, xrank, scale8).numpy()
+    """Every bucket's staged arrays equal the JAX fast lane's decode of its
+    flat transport of the same jobs (``_unpack_dev``): ranks, event rows,
+    lengths, base slots, scales and rows exactly, the window rows on each
+    job's diagonals (past them both step w0 alike and keep the range empty).
+    On the device: the per-diagonal rows and the extraction equal the JAX
+    functions' exactly, the f32 model scaling + Gauss pack to 1 ulp of
+    log(sd) (torch's and XLA's f32 log may round differently, 6e-8 absolute
+    at |log(sd)| < 1, seen after the cancellation in logc = -0.919 -
+    log(sd))."""
+    _got, staged, ran = port_run
+    assert staged and len(staged) == len(ran)
+    for (jobs, slots, host), (_plan, W, Kg, thr, mt, yt, gapx, b) in zip(staged, ran):
+        Dp, lXp, lYp = host.win.shape[2], host.xrank.shape[1], host.evr.shape[2]
+        want = dict(zip(("xrank", "win", "lY", "d_last", "bidx", "evr", "scale8",
+                         "tp_scalar", "start", "end", "real"),
+                        (np.asarray(a) for a in jrp._unpack_dev(
+                            *(jnp.asarray(a) for a in jax_flat_staging(jobs, slots)),
+                            W=W, Dp=Dp, lXp=lXp, lYp=lYp, n_tp=len(jobs[0].tp_scalar),
+                            S=len(jobs[0].start)))))
+        assert want.pop("real").all()
+        win = want.pop("win")
+        for name, a in want.items():
+            np.testing.assert_array_equal(getattr(host, name), a, err_msg=name)
+        for bi, fj in enumerate(jobs):
+            D = fj.wband.n_diagonals
+            np.testing.assert_array_equal(host.win[bi, :, :D], win[bi, :, :D])
+            np.testing.assert_array_equal(host.win[bi, ::2, D:], win[bi, ::2, D:])
+            assert (host.win[bi, 1, D:] > host.win[bi, 2, D:]).all()
+        xa = trp._pack_xarr(mt, yt, gapx, b.bidx, b.xrank, b.scale8).numpy()
         ja = np.asarray(jrp._pack_xarr(*(jnp.asarray(a.numpy()) for a in
-                                         (mt, yt, gapx, bidx, xrank, scale8))))
+                                         (mt, yt, gapx, b.bidx, b.xrank, b.scale8))))
         np.testing.assert_allclose(xa, ja, rtol=2e-7, atol=1.2e-7)
-        for a, b in zip(trp._pack_ds(win, lY, W, lXp, lYp),
-                        jrp._pack_ds(jnp.asarray(win.numpy()), jnp.asarray(lY.numpy()),
-                                     W, lXp, lYp)):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        for a, ref in zip(tpp.band_scalars(b.win, b.lY, W, lXp, lYp),
+                          jrp._pack_ds(jnp.asarray(b.win.numpy()), jnp.asarray(b.lY.numpy()),
+                                       W, lXp, lYp)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
         # extraction on a synthetic posterior grid with crowded diagonals
         rng = np.random.default_rng(Dp + W)
-        p = (rng.random((len(real), Dp, W)) ** 8).astype(np.float32)
-        for a, b in zip(trp._extract_global(torch.from_numpy(p), thr, Kg, real),
-                        jrp._extract_global(jnp.asarray(p), thr, Kg,
-                                            jnp.asarray(real.numpy()))):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        p = (rng.random((len(jobs), Dp, W)) ** 8).astype(np.float32)
+        for a, ref in zip(trp.extract_global(torch.from_numpy(p), thr, Kg),
+                          jrp._extract_global(jnp.asarray(p), thr, Kg,
+                                              jnp.ones(len(jobs), dtype=bool))):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
 
 
 def test_run_fast_jobs_and_pad_window(cases, port_run):
-    """run_fast_jobs (stage + dispatch + one collection) gives the pairs of
-    the batched path and fills its timing keys; the device's window decode
-    pads past each job's diagonals exactly as the host rule pad_window."""
+    """batch_align_jobs (stage + dispatch + one collection) gives the pairs
+    of the recorded run and fills its timing keys; every staged job's window
+    rows are the host rule pad_window's at its bucket's Dp."""
     params, _jobs, port_jobs, _wants = cases
-    got, seen = port_run
-    staged = []
-    for i, j in enumerate(port_jobs):
-        staged.append((i, *trp.stage_fast_job(j, tba.job_window(j.band))))
+    got, staged, _ran = port_run
     timing = {}
-    out = trp.run_fast_jobs(staged, params.threshold, device=CPU, timing=timing)
+    again = tba.batch_align_jobs(port_jobs, params.threshold, device=CPU, timing=timing)
     assert set(timing) == {"host_pack", "device_wait", "host_extract"}
-    for i, pairs in out.items():
+    for a, b in zip(again, got):
         for field in ("probs", "x", "y"):
-            np.testing.assert_array_equal(getattr(pairs, field), getattr(got[i], field))
-    by_w0 = {}
-    for _i, fj, _plan in staged:
-        by_w0.setdefault((fj.wband.W, int(fj.wband.w0[0]), fj.wband.n_diagonals),
-                         []).append(fj.wband)
-    for (_plan, W, Dp, *_r, meta_i, _mf, _fr, flat_w, _fe) in seen:
-        win = trp._unpack_win(meta_i, flat_w.to(torch.int32), W, Dp).numpy()
-        for bi in range(len(meta_i)):
-            key = (W, int(meta_i[bi, trp.MI_W00]), int(meta_i[bi, trp.MI_WIN_D]))
-            assert any((trp.pad_window(wb, Dp) == win[bi]).all() for wb in by_w0[key])
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert sum(len(jobs) for jobs, _s, _h in staged) == len(port_jobs)
+    for jobs, _slots, host in staged:
+        for bi, fj in enumerate(jobs):
+            np.testing.assert_array_equal(host.win[bi],
+                                          tpp.pad_window(fj.wband, host.win.shape[2]))
 
 
 def test_unported_machines_raise():

@@ -188,7 +188,7 @@ def _em_jobs(rng, lengths):
 
 
 def test_em_step_counts_its_buckets(monkeypatch):
-    monkeypatch.setattr(sm3_em, "MAX_BUCKET", 2)     # several buckets, padded
+    monkeypatch.setattr(sm3_em.pp, "MAX_BUCKET", 2)     # several buckets, padded
     jobs = _em_jobs(np.random.default_rng(7), (30, 44, 38, 52, 41))
     wbands = [smooth_band(j.band, width_multiple=64) for j in jobs]
     names = ("em.problems", "em.diagonals", "em.cells_lane", "em.cells_band", "em.sm_slots")

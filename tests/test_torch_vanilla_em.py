@@ -117,7 +117,7 @@ def test_vanilla_em_bucketing_bit_identical(vanilla_set, monkeypatch):
     all give the same tallies and likelihood bit for bit."""
     _jj, tj, _cases, _jpore, skip = vanilla_set
     whole = tem.build_vanilla_em_buckets(tj, "t", device=CPU)
-    monkeypatch.setattr(tem, "MAX_BUCKET", 1)
+    monkeypatch.setattr(tem.pp, "MAX_BUCKET", 1)
     apart = tem.build_vanilla_em_buckets(tj, "t", device=CPU)
     assert len(whole) == 1 and len(apart) == len(tj)
     assert len({b.batch.diag_scalars.shape[1] for b in apart}) > 1

@@ -23,7 +23,8 @@ The E-step's spans and counters (``utils/observability``): the host
 staging ("nem.stage": every job's codes and window band, the bucketing and
 each bucket's upload), the host blocked on the card for the results
 ("nem.device_wait"), and per bucket "nem.jobs", "nem.diagonals" (each job's
-own), "nem.cells_band" (its true band's cells), "nem.cells_lane" (B x Dp x
+own), "nem.chain_diagonals" (its longest job's own: the launch's serial
+chain), "nem.cells_band" (its true band's cells), "nem.cells_lane" (B x Dp x
 W, the launch's lanes) and "nem.sm_slots" (SMs x the recursion blocks an SM
 holds x Dp; 0 off a card).
 """
@@ -103,6 +104,7 @@ def _bucket_counts(staged, chunk, W: int, Dp: int) -> dict:
     """A bucket's counters, from its jobs' window bands."""
     bands = [staged[si][1].wband for si in chunk]
     return {"nem.jobs": len(chunk), "nem.diagonals": sum(b.n_diagonals for b in bands),
+            "nem.chain_diagonals": max(b.n_diagonals for b in bands),
             "nem.cells_band": sum(int(((b.xmyR - b.xmyL) // 2 + 1).sum()) for b in bands),
             "nem.cells_lane": len(chunk) * Dp * W}
 

@@ -54,7 +54,8 @@ def round_up(x: int, m: int) -> int:
 
 def _dp_ladder(d: int) -> int:
     """Quantized Dp: 256-multiples up to 1024, powers of two to 16384, then
-    8192-multiples; coarse rungs merge jobs into few buckets."""
+    8192-multiples.  In the fast lane the rung keys the buckets; in the
+    symbol lane it sets only a launch's Dp (``symbol_buckets``)."""
     if d <= 1024:
         return round_up(max(d, _DQ), _DQ)
     if d <= 16384:
@@ -523,17 +524,25 @@ def extract_compact(p: torch.Tensor, threshold: float, K: int, L: int | None = N
 
 
 def symbol_buckets(staged) -> list[tuple]:
-    """Buckets of staged symbol jobs, for realignment and the nucleotide
-    E-step alike: one (plan, W, Dp rung, table set) each, consecutive jobs,
-    at most BUCKET_CELLS window cells (pipeline.launch_groups).  Returns
-    [(plan, W, Dp, staged indices)]."""
+    """Launches of staged symbol jobs, for realignment and the nucleotide
+    E-step alike: one key (plan, W, table set) each, its jobs longest first
+    (window diagonals, descending; ties in job order), cut into launches of
+    at most MAX_BUCKET jobs and BUCKET_CELLS window cells
+    (pipeline.launch_groups), each padded to the Dp rung of its longest
+    job.  Jobs of every length share a launch, so a launch's chain is its
+    longest job's and no more launches run one after another than the cap
+    forces.  Returns [(plan, W, Dp, staged indices)]."""
+    order = sorted(range(len(staged)), key=lambda i: -staged[i][1].wband.n_diagonals)
     keys, sizes = [], []
-    for _ji, sj, plan in staged:
-        Dp = _dp_ladder(sj.wband.n_diagonals + 2)
-        keys.append((plan, sj.wband.W, Dp, sj.tab_key))
-        sizes.append(Dp * sj.wband.W)
-    return [(plan, W, Dp, chunk) for (plan, W, Dp, _tk), chunk
-            in pp.launch_groups(keys, sizes, BUCKET_CELLS)]
+    for i in order:
+        _ji, sj, plan = staged[i]
+        keys.append((plan, sj.wband.W, sj.tab_key))
+        sizes.append(_dp_ladder(sj.wband.n_diagonals + 2) * sj.wband.W)
+    out = []
+    for (plan, W, _tk), chunk in pp.launch_groups(keys, sizes, BUCKET_CELLS):
+        idxs = [order[c] for c in chunk]
+        out.append((plan, W, _dp_ladder(staged[idxs[0]][1].wband.n_diagonals + 2), idxs))
+    return out
 
 
 class SymbolBucket(NamedTuple):

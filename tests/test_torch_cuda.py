@@ -458,6 +458,34 @@ def test_cuda_discrete_estep_matches_cpu(cuda_device):
         assert abs(lik - wl) <= 1e-5 * abs(wl)
 
 
+def test_cuda_discrete_estep_independent_of_rungs(cuda_device, monkeypatch):
+    """On the card, symbol jobs of four Dp rungs share one launch padded to
+    the longest's rung (readpath.symbol_buckets), and each job's tallies and
+    likelihood equal those of one job a launch bit for bit: the kernels stop
+    at each job's own last diagonal."""
+    from cpecan_signal_tpu_torch.em.discrete import (collect_symbol_split_jobs,
+                                                     discrete_expectations_batched)
+    from cpecan_signal_tpu_torch.engine import readpath
+
+    rng = np.random.default_rng(17)
+    jobs = []
+    for i, n in enumerate((100, 400, 1200, 250)):
+        x = "".join(rng.choice(list("ACGT"), n))
+        y, truth = syn.evolve_with_truth(x, rng, 0.05, 0.005, 0.005)
+        jobs += collect_symbol_split_jobs(_bound_sm5, x, y, truth[::10], AlignmentParams(),
+                                          ragged_left=bool(i % 2), ragged_right=i < 2)
+    wbands = [smooth_band(j.band, width_multiple=128) for j in jobs]
+    assert len({readpath._dp_ladder(wb.n_diagonals + 2) for wb in wbands}) == 4
+    assert len({wb.W for wb in wbands}) == 1
+    timing = {}
+    together = discrete_expectations_batched(jobs, device=cuda_device, timing=timing)
+    assert timing["buckets"] == 1
+    monkeypatch.setattr(readpath.pp, "MAX_BUCKET", 1)
+    alone = discrete_expectations_batched(jobs, device=cuda_device)
+    for (t, e, lik), (t2, e2, lik2) in zip(together, alone):
+        assert np.array_equal(t, t2) and np.array_equal(e, e2) and lik == lik2
+
+
 def test_cuda_launch_config_matches_wrappers(cuda_device):
     """The C library sizes the recursion's E ring, the epilogue block and
     the emissions block as ops/fb_kernels.ring_depth, epilogue_warps and

@@ -38,6 +38,7 @@ from cpecan_signal_tpu.engine import pallas_pipeline as jpp
 from cpecan_signal_tpu.engine.batch_align import batch_align_jobs as jbatch_align_jobs
 from cpecan_signal_tpu.models.params import AlignmentParams as JParams
 from cpecan_signal_tpu.ops import pallas_fb as pk
+from cpecan_signal_tpu_torch.core.window import smooth_band
 from cpecan_signal_tpu_torch.em import discrete as tdisc
 from cpecan_signal_tpu_torch.engine import batch_align as tba
 from cpecan_signal_tpu_torch.engine import pipeline as tpp
@@ -243,6 +244,34 @@ def test_discrete_tallies_independent_of_bucketing(em_case, monkeypatch):
     for other in (reverse, alone):
         for (a, b, c), (x, y, z) in zip(together, other):
             assert np.array_equal(a, x) and np.array_equal(b, y) and c == z
+
+
+@pytest.fixture(scope="module")
+def rung_jobs():
+    """Split jobs of three Dp rungs (256, 512 and 768 diagonals) at one
+    window width."""
+    _jj, tj, _owners = _jobs(_pairs(4, (40, 150, 300)), ragged=False)
+    return tj
+
+
+def test_discrete_tallies_independent_of_rungs(rung_jobs, monkeypatch):
+    """(c) Jobs of different Dp rungs share one launch, padded to the
+    longest's rung (readpath.symbol_buckets), and each job's tallies and
+    likelihood are the same bit for bit as with one job a launch."""
+    wbands = [smooth_band(j.band, width_multiple=128) for j in rung_jobs]
+    assert len({trp._dp_ladder(wb.n_diagonals + 2) for wb in wbands}) == 3
+    assert len({wb.W for wb in wbands}) == 1
+    timing = {}
+    together = tdisc.discrete_expectations_batched(rung_jobs, device=CPU, timing=timing)
+    assert timing["buckets"] == 1
+    assert timing["nem.chain_diagonals"] == max(wb.n_diagonals for wb in wbands)
+    monkeypatch.setattr(trp.pp, "MAX_BUCKET", 1)
+    timing = {}
+    alone = tdisc.discrete_expectations_batched(rung_jobs, device=CPU, timing=timing)
+    assert timing["buckets"] == len(rung_jobs)
+    assert timing["nem.chain_diagonals"] == timing["nem.diagonals"]
+    for (a, b, c), (x, y, z) in zip(together, alone):
+        assert np.array_equal(a, x) and np.array_equal(b, y) and c == z
 
 
 def test_pairwise_sum_ignores_trailing_zeros():

@@ -11,9 +11,16 @@
   * the one bucketing rule (``pipeline.launch_groups``): the jobs that share
     each launch of the three cells' paths (the threeState EM buckets, the
     symbol lane of realignment, the nucleotide E-step) on the tests' job
-    sets, with both caps binding, are the lists the staging produced before
-    the rule was one function.
+    sets, with both caps binding: the threeState EM lists the staging
+    produced before the rule was one function, the symbol lane's longest
+    job first;
+  * the symbol lane's launches (``readpath.symbol_buckets``): no Dp rung in
+    a key, jobs longest first, a launch's Dp the rung of its longest job,
+    its window cells within BUCKET_CELLS, one window width a launch.
 """
+
+import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -194,13 +201,15 @@ def test_band_scalars_match_jax_builders(lane, width):
 # Launch membership of the cells' paths
 # ---------------------------------------------------------------------------
 
-# the jobs of each launch, as the staging gave them before the bucketing rule
-# was one function (threeState EM: MAX_BUCKET 2; symbol lane: MAX_BUCKET 2 and
-# BUCKET_CELLS 3 x 768 x 128)
+# the jobs of each launch (threeState EM: MAX_BUCKET 2, as the staging gave
+# them before the bucketing rule was one function; symbol lane: MAX_BUCKET 2
+# and BUCKET_CELLS 3 x 768 x 128, one key a window width, longest job first:
+# diagonals 599, 598, 596, 595, 594, 591 at W 256 and 595, 594, 591 at W 128,
+# the ties in job order)
 PARENT_LAUNCHES = {
     "sm3_em": [[0, 1], [2, 3], [4, 6], [8], [7], [5]],
-    "realign": [[0], [2], [3], [5], [7], [8], [1, 4], [6]],
-    "nem": [[0], [2], [3], [5], [7], [8], [1, 4], [6]],
+    "realign": [[8], [0], [5], [7], [3], [2], [6, 1], [4]],
+    "nem": [[8], [0], [5], [7], [3], [2], [6, 1], [4]],
 }
 
 
@@ -266,3 +275,67 @@ def test_launch_groups_cut_by_count_and_size(monkeypatch):
     sizes = [2, 1, 2, 9, 1, 5, 1]
     assert tpp.launch_groups(keys, sizes, 8) == [
         ("a", [0, 2]), ("a", [3]), ("a", [4, 6]), ("b", [1]), ("b", [5])]
+
+
+def _fake_staged(rng, n):
+    """``n`` staged symbol jobs with the fields ``symbol_buckets`` reads:
+    window diagonals log-uniform over 100-200 k (every Dp rung band), W 64
+    or 128, one of two table sets."""
+    diags = np.exp(rng.uniform(np.log(100), np.log(200_000), n)).astype(int)
+    out = []
+    for i, d in enumerate(diags):
+        wband = SimpleNamespace(n_diagonals=int(d), W=int(rng.choice((64, 128))))
+        tab_key = (b"a", b"b")[rng.integers(2)]
+        out.append((i, SimpleNamespace(wband=wband, tab_key=tab_key), "fiveState"))
+    return out
+
+
+@pytest.mark.parametrize("cells", [None, 40 * 16384 * 128])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_symbol_buckets_longest_first_without_rungs(seed, cells, monkeypatch):
+    """Each key (plan, W, table set) holds jobs of every Dp rung, longest
+    first; a launch's Dp is its longest job's rung, its count x Dp x W within
+    BUCKET_CELLS unless it holds one job, and W 64 and 128 never share one."""
+    if cells is not None:
+        monkeypatch.setattr(trp, "BUCKET_CELLS", cells)
+    staged = _fake_staged(np.random.default_rng(seed), 200)
+    launches = trp.symbol_buckets(staged)
+    assert sorted(i for *_k, chunk in launches for i in chunk) == list(range(len(staged)))
+    by_key: dict = {}
+    for plan, W, Dp, chunk in launches:
+        jobs = [staged[i][1] for i in chunk]
+        assert {sj.wband.W for sj in jobs} == {W}
+        assert len({sj.tab_key for sj in jobs}) == 1
+        assert len(chunk) <= tpp.MAX_BUCKET
+        assert Dp == trp._dp_ladder(max(sj.wband.n_diagonals for sj in jobs) + 2)
+        assert len(chunk) == 1 or len(chunk) * Dp * W <= trp.BUCKET_CELLS
+        by_key.setdefault((plan, W, jobs[0].tab_key), []).extend(chunk)
+    assert len(by_key) == 4
+    for chunk in by_key.values():
+        d = [staged[i][1].wband.n_diagonals for i in chunk]
+        assert d == sorted(d, reverse=True)
+    # the key holds no rung: jobs of several rungs share a launch
+    assert any(len({trp._dp_ladder(staged[i][1].wband.n_diagonals + 2) for i in chunk}) > 1
+               for *_k, chunk in launches)
+
+
+def test_symbol_lane_pairs_independent_of_launches(monkeypatch):
+    """Realignment's pairs of jobs of mixed lengths are the same bit for bit
+    in the symbol lane's launches as with one job a launch."""
+    recs, seqs = _records(np.random.default_rng(11), 2, 300)
+    short, short_seqs = _records(np.random.default_rng(12), 2, 120)
+    recs += [dataclasses.replace(r, contig1="s" + r.contig1, contig2="s" + r.contig2)
+             for r in short]
+    seqs.update({"s" + k: v for k, v in short_seqs.items()})
+    _heads, _spans, jobs = record_jobs(recs, seqs, AlignmentParams(), None)
+    staged = [(i, *trp.stage_symbol_job(j, tba.job_window(j.band))) for i, j in enumerate(jobs)]
+    launches = trp.symbol_buckets(staged)
+    assert len(launches) < len(jobs)
+    assert any(len({staged[i][1].wband.n_diagonals for i in chunk}) > 1
+               for *_k, chunk in launches)
+    together = tba.batch_align_jobs(jobs, 0.01, device=CPU)
+    monkeypatch.setattr(tpp, "MAX_BUCKET", 1)
+    alone = tba.batch_align_jobs(jobs, 0.01, device=CPU)
+    for a, b in zip(together, alone):
+        assert len(a.probs) > 0
+        assert a.as_tuples() == b.as_tuples()

@@ -209,7 +209,8 @@ def test_em_step_counts_its_buckets(monkeypatch):
 
 
 NEM_SPANS = ("head", "nem.stage", "nem.device_wait")
-NEM_COUNTS = ("nem.jobs", "nem.diagonals", "nem.cells_band", "nem.cells_lane", "nem.sm_slots")
+NEM_COUNTS = ("nem.jobs", "nem.diagonals", "nem.chain_diagonals", "nem.cells_band",
+              "nem.cells_lane", "nem.sm_slots")
 
 
 def test_nucleotide_estep_spans_and_counters():
@@ -221,6 +222,8 @@ def test_nucleotide_estep_spans_and_counters():
     buckets = readpath.symbol_buckets(staged)
     want = {"nem.jobs": len(jobs),
             "nem.diagonals": sum(sj.wband.n_diagonals for _i, sj, _p in staged),
+            "nem.chain_diagonals": sum(max(staged[si][1].wband.n_diagonals for si in chunk)
+                                       for *_k, chunk in buckets),
             "nem.cells_band": sum(int(j.band.widths.sum()) for j in jobs),
             "nem.cells_lane": sum(len(chunk) * Dp * W for _p, W, Dp, chunk in buckets),
             "nem.sm_slots": 0}
